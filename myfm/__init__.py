@@ -1,4 +1,4 @@
-"""Compatibility shim: ``import myfm`` resolves to the TPU-native
+"""Compatibility shim: ``import myfm`` resolves to the JAX
 rebuild, so code written against the reference (tohtsky/myFM) runs
 unchanged.  See myfm_tpu for the actual implementation."""
 

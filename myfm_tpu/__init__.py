@@ -1,4 +1,4 @@
-"""myfm_tpu — TPU-native Bayesian Factorization Machines.
+"""myfm_tpu — Bayesian Factorization Machines in JAX, run on the GPU.
 
 A from-scratch JAX/XLA/Pallas re-implementation of the capabilities of
 tohtsky/myFM: MCMC (Gibbs) and variational Bayesian FMs with feature

@@ -64,10 +64,7 @@ def _load():
 
     pt = lib.myfm_pack_tiles
     pt.restype = None
-    pt.argtypes = [
-        i64, i64, p64, p64, i64, i64, i64,
-        p32, p32, p32, p32, p32, p32, p32, p32,
-    ]
+    pt.argtypes = [i64, i64, p64, p64, i64, i64, i64, p32, p32, p32, p32]
     return fn, pr, pt
 
 
@@ -97,8 +94,9 @@ else:
 
     def pack_tiles_native(order, counts, n: int, T: int, S: int):
         """C++ greedy tile packing (design_categorical._pack_tiles);
-        returns the same tuple as the Python implementation, with one
-        trailing all-pad tile already appended."""
+        returns the same (src, slot, ent, ent_slots) tuple as the
+        Python implementation, with one trailing all-pad tile already
+        appended."""
         order = np.ascontiguousarray(order, dtype=np.int64)
         counts = np.ascontiguousarray(counts, dtype=np.int64)
         n_entities = len(counts)
@@ -107,17 +105,7 @@ else:
         src = np.empty(n_out, dtype=np.int32)
         slot = np.empty(n_out, dtype=np.int32)
         ent = np.empty(n_out, dtype=np.int32)
-        cont_in = np.empty(K, dtype=np.int32)
-        cont_out = np.empty(K, dtype=np.int32)
-        last_slot = np.empty(K, dtype=np.int32)
         ent_slots = np.empty(K * S, dtype=np.int32)
-        final_part = np.empty(n_entities, dtype=np.int32)
-        _pt(
-            n, n_entities, order, counts, T, S, n_out,
-            src, slot, ent, cont_in, cont_out, last_slot, ent_slots,
-            final_part,
-        )
-        return (
-            src, slot, ent, cont_in, cont_out, last_slot,
-            ent_slots.reshape(K, S), final_part,
-        )
+        _pt(n, n_entities, order, counts, T, S, n_out, src, slot, ent,
+            ent_slots)
+        return src, slot, ent, ent_slots.reshape(K, S)

@@ -1,7 +1,7 @@
-// Host-side native planner for the TPU design compiler.
+// Host-side native planner for the design compiler.
 //
 // The reference implements its whole engine in C++
-// (/root/reference/include/myfm/FMTrainer.hpp); in the TPU rebuild all
+// (include/myfm/FMTrainer.hpp); in this rebuild all
 // *compute* lives on-device (JAX/XLA/Pallas), and the only host-side
 // hot path is design-matrix compilation: partitioning the columns of a
 // CSC design matrix into row-disjoint "colors" (see
@@ -78,51 +78,34 @@ int64_t myfm_packed_rows(int64_t n_entities, const int64_t* counts,
 // the outputs from myfm_packed_rows(+one trailing pad tile):
 //   n_out = packed_rows + T.
 // Inputs: order[n] (row indices sorted by entity), counts[n_entities].
-// Outputs (lengths): src/slot/ent [n_out]; cont_in/cont_out/last_slot
-// [n_out/T]; ent_slots [n_out/T * S]; final_part [n_entities].
-// Pads: src = n, ent = n_entities, ent_slots = n_entities,
-// final_part(empty entity) = (K-1)*S (first slot of the pad tile).
+// Outputs (lengths): src/slot/ent [n_out]; ent_slots [n_out/T * S].
+// Pads: src = n, slot = S, ent = n_entities, ent_slots = n_entities.
 void myfm_pack_tiles(int64_t n, int64_t n_entities, const int64_t* order,
                      const int64_t* counts, int64_t T, int64_t S,
                      int64_t n_out, int32_t* src, int32_t* slot,
-                     int32_t* ent, int32_t* cont_in, int32_t* cont_out,
-                     int32_t* last_slot, int32_t* ent_slots,
-                     int32_t* final_part) {
+                     int32_t* ent, int32_t* ent_slots) {
   const int64_t K = n_out / T;
   for (int64_t i = 0; i < n_out; ++i) {
     src[i] = static_cast<int32_t>(n);
-    slot[i] = 0;
+    slot[i] = static_cast<int32_t>(S);
     ent[i] = static_cast<int32_t>(n_entities);
   }
-  for (int64_t k = 0; k < K; ++k) {
-    cont_in[k] = 0;
-    cont_out[k] = 0;
-    last_slot[k] = 0;
-    for (int64_t s = 0; s < S; ++s)
-      ent_slots[k * S + s] = static_cast<int32_t>(n_entities);
-  }
-  for (int64_t u = 0; u < n_entities; ++u)
-    final_part[u] = static_cast<int32_t>((K - 1) * S);
+  for (int64_t i = 0; i < K * S; ++i)
+    ent_slots[i] = static_cast<int32_t>(n_entities);
 
   int64_t pos = 0;       // cursor into `order`
   int64_t tile = 0;      // current tile
   int64_t row_fill = 0;  // rows used in current tile
   int64_t ent_fill = 0;  // slots used in current tile
-  int64_t prev_last = -1;  // last entity of the previous tile
-  int64_t cur_last = -1;   // last entity of the current tile
-  int64_t cur_first = -1;
   for (int64_t u = 0; u < n_entities; ++u) {
     int64_t c = counts[u];
     if (c == 0) continue;
     int64_t taken = 0;
     while (taken < c) {
       if (row_fill >= T || ent_fill >= S) {
-        last_slot[tile] = std::max<int64_t>(ent_fill - 1, 0);
-        prev_last = cur_last;
         ++tile;
         row_fill = 0;
         ent_fill = 0;
-        cur_first = -1;
       }
       int64_t take = std::min(c - taken, T - row_fill);
       const int64_t base = tile * T + row_fill;
@@ -131,24 +114,12 @@ void myfm_pack_tiles(int64_t n, int64_t n_entities, const int64_t* order,
         slot[base + j] = static_cast<int32_t>(ent_fill);
         ent[base + j] = static_cast<int32_t>(u);
       }
-      if (cur_first < 0) {
-        cur_first = u;
-        if (u == prev_last) {
-          cont_in[tile] = 1;
-          cont_out[tile - 1] = 1;
-        }
-      }
-      cur_last = u;
       ent_slots[tile * S + ent_fill] = static_cast<int32_t>(u);
-      final_part[u] = static_cast<int32_t>(tile * S + ent_fill);
       pos += take;
       taken += take;
       row_fill += take;
       ent_fill += 1;
     }
-  }
-  if (row_fill) {
-    last_slot[tile] = std::max<int64_t>(ent_fill - 1, 0);
   }
 }
 

@@ -4,7 +4,7 @@ Mirrors the reference's ``myfm.base``
 (/root/reference/src/myfm/base.py:72-399): constructor hyperparameter
 surface, ``_fit`` data-validation/grouping/callback plumbing, and the
 Regressor/Classifier mixins — but ``_train_core`` dispatches to the
-TPU trainers instead of a pybind11 module.
+JAX trainers instead of a pybind11 module.
 """
 
 from __future__ import annotations
@@ -154,7 +154,7 @@ class MyFMBase(ABC):
 
         The first eleven parameters follow the reference exactly
         (priors: α, λ ~ Gamma(α₀/2, β₀/2); μ ~ N(μ₀, 1/γ₀);
-        w0 ~ N(0, 1/reg₀)).  TPU-specific extras:
+        w0 ~ N(0, 1/reg₀)).  Extras of this rebuild:
 
         dtype:
             On-device compute precision (default float32; the reference

@@ -8,7 +8,6 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import pandas as pd
 from scipy import sparse as sps
 
 from .base import (
@@ -33,7 +32,7 @@ def _encode_ordered_targets(cutpoint_groups, y: np.ndarray):
 
     The C++ engine supports one independent cutpoint sampler per group
     (FMLearningConfig.hpp:15; the trainer ctor validates the groups
-    partition the rows, BaseFMTrainer.hpp:58-105).  The TPU sweeps
+    partition the rows, BaseFMTrainer.hpp:58-105).  The sweeps here
     carry the group membership inside the integer target itself: group
     g's classes map to [Σ_{j<g} K_j, Σ_{j<g} K_j + K_g), so no per-row
     group array needs to flow through the jitted programs
@@ -336,8 +335,11 @@ class MyFMGibbsBase(MyFMBase):
             config.n_iter, config.n_kept_samples, callback
         )
 
-    def get_hyper_trace(self) -> pd.DataFrame:
-        """Tidy per-iteration hyperparameter trace (gibbs.py:109-142)."""
+    def get_hyper_trace(self):
+        """Tidy per-iteration hyperparameter trace (gibbs.py:109-142),
+        as a pandas DataFrame (pandas is needed for this method only)."""
+        import pandas as pd
+
         if (self.n_groups_ is None) or (self.history_ is None):
             raise RuntimeError("Sampler not run yet.")
         columns = (

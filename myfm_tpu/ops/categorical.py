@@ -11,9 +11,9 @@ sums are pure functions of the small per-entity weight tables,
     e_n = score_n - tau_n     (tau = y, or the probit latent z),
 
 so each table pass reconstructs (e, phi) **in its own tile space** with
-three small-source row-gathers ([B_t', 1+R] weight tables — high
-locality, ~10x cheaper on TPU than permuting [N, 1+R] row state), and
-writes back only the updated weight slices.
+small-source row-gathers ([B_t', 2+R] weight tables, which stay in
+cache) instead of permuting [N, 1+R] row state, and writes back only
+the updated weight slices.
 
 Math (per categorical table t; entity u ≡ feature; x = 1):
 
@@ -28,7 +28,7 @@ Math (per categorical table t; entity u ≡ feature; x = 1):
 
   All per-entity statistics are entries of ONE Gram matrix
       G_u = sum_{n in u} z z^T,  z = [1 | e | phi_1..phi_R]
-  (the Pallas kernel in ops/pallas_gram.py):
+  (ops/gram.py):
       card = G[0,0], E1 = G[0,1], Sphi_r = G[0,2+r],
       EQ_r = G[1,2+r], Sphi2_r = G[2+r,2+r], sum phi_r phi_s = G[2+r,2+s].
 
@@ -71,7 +71,7 @@ from .gibbs import (
     draw_lambda,
     draw_mu,
 )
-from .pallas_gram import fused_tile_gram_cross, gram_tiles_per_step
+from .gram import table_gram
 from .special import truncated_std_normal_onesided
 
 
@@ -110,15 +110,13 @@ def _table_slice(W: jax.Array, t: CategoricalTable) -> jax.Array:
     return W[t.col_offset : t.col_offset + t.n_cols]
 
 
-def _wv_rows(w, V, t2: CategoricalTable, idx: jax.Array) -> jax.Array:
-    """Gather [w_t2 | V_t2 | qs_t2] rows ([*, 2+R]) by entity index
-    (pad->0).  The trailing qs = Σ_r V² column is precomputed ONCE per
-    [B]-sized entity table so the Gram kernel adds one lane instead of
-    squaring + lane-reducing every gathered row — the kernel is
-    VPU-bound, and the per-cross square+reduce was its single hottest
-    section (measured 2026-08-20 on v5e, scripts/microbench_kernel_ts)."""
+def _wv_table(w, V, t2: CategoricalTable) -> jax.Array:
+    """Per-entity [w | V | qs] rows ([B, 2+R]) of a one-hot table.  The
+    trailing qs = Σ_r V² column is computed once per [B]-sized table so
+    consumers of gathered rows add one column instead of squaring and
+    reducing every row."""
     V_t = _table_slice(V, t2)
-    wv = jnp.concatenate(
+    return jnp.concatenate(
         [
             _table_slice(w, t2)[:, None],
             V_t,
@@ -126,7 +124,6 @@ def _wv_rows(w, V, t2: CategoricalTable, idx: jax.Array) -> jax.Array:
         ],
         axis=1,
     )
-    return _pad_zero_row(wv)[idx]
 
 
 def eff_tables(plan: CategoricalPlan, w, V):
@@ -142,7 +139,7 @@ def eff_tables(plan: CategoricalPlan, w, V):
         qs_u = Σ_r Xs²[u,:]·V_s²[:,r]   (the TRUE per-entity Σ x²V²),
 
     packed as one [B, 1+R+1] array [w̃ | Ṽ | qs] — the same
-    [w | V | qs] layout _wv_rows produces for one-hot tables, so every
+    [w | V | qs] layout _wv_table produces for one-hot tables, so every
     gathered row carries its squared-factor sum precomputed."""
     out = []
     for t, si in zip(plan.tables, plan.side):
@@ -164,16 +161,16 @@ def eff_tables(plan: CategoricalPlan, w, V):
     return out
 
 
-def _eff_rows(w, V, t2: CategoricalTable, eff2, idx: jax.Array):
-    """Gather table t2's per-entity contribution rows by entity index.
+def _src_table(w, V, t2: CategoricalTable, eff2) -> jax.Array:
+    """Table t2's per-entity contribution rows [B, 2+R] = [w | V | qs]
+    (qs the true per-row Σᵢ x²V²; Σ_r V² for one-hot tables)."""
+    return _wv_table(w, V, t2) if eff2 is None else eff2
 
-    Returns g [n, 2+R] = [w | V | qs] uniformly: qs is the true
-    per-row Σᵢ x²V² (Σ_r V² for one-hot tables), precomputed in the
-    [B]-sized source so consumers never square-and-reduce gathered
-    rows."""
-    if eff2 is None:
-        return _wv_rows(w, V, t2, idx)
-    return _pad_zero_row(eff2)[idx]
+
+def _eff_rows(w, V, t2: CategoricalTable, eff2, idx: jax.Array):
+    """Gather table t2's [w | V | qs] contribution rows by entity index
+    (pad index B → zero row)."""
+    return _pad_zero_row(_src_table(w, V, t2, eff2))[idx]
 
 
 def _score_parts(plan: CategoricalPlan, w, V, w0, ent_maps, ones,
@@ -182,7 +179,7 @@ def _score_parts(plan: CategoricalPlan, w, V, w0, ent_maps, ones,
 
     ``ones`` masks pad rows (only needed for the w0 term; gathered pad
     rows are already zero).  The squared term is accumulated as a
-    per-row scalar — never materializing an [n, R] QS matrix (HBM
+    per-row scalar — never materializing an [n, R] QS matrix (device memory
     matters at 1e7 rows)."""
     rank = V.shape[1]
     n = ent_maps[0].shape[0]
@@ -253,120 +250,29 @@ def _build_table_gram(
     eff,  # per-table effective rows (eff_tables)
     own_rows: jax.Array,  # [B, 2+R] own per-entity [w | V | qs]
     tau_tile: jax.Array,
-    cfg: GibbsConfig,
-    interpret: bool,
+    gram_impl: str,
 ):
     """Per-entity Gram G_u = Σ_{n∈u} z zᵀ, z = [1 | e⁰ | φ_other], for
-    table ti — reconstructed chunk-by-chunk from the current weights.
+    table ti, reconstructed from the current weights (ops/gram.py).
 
-    e⁰ EXCLUDES w0 (the kernel never sees it): consumers apply the
-    exact rank-1 correction z₁ += w0·z₀ to the Gram statistics
-    (_entity_draws / _ea_table_pass), which keeps the kernel's per-row
-    side data down to two lane-dense [K, T] vectors (slot, τ) — the
-    sweep is bandwidth-bound on this hardware, and the 128-lane-padded
-    aux operand it replaces cost ~1 KB/row per table pass.
-
-    Working set stays O(chunk) instead of O(N): at ML-10M scale the
-    [NT, R]-sized temporaries (phi, z, Q) would otherwise hold ~4 GB
-    live per table and blow out HBM."""
+    e⁰ EXCLUDES w0: consumers apply the exact rank-1 correction
+    z₁ += w0·z₀ to the Gram statistics (_entity_draws / _ea_table_pass),
+    so the per-row side data stays two [NT] vectors (slot, τ)."""
     t = plan.tables[ti]
-    rank = V.shape[1]
-    D = rank + 2
-    K = t.n_tiles
-    T = t.tile_rows
-    dtype = V.dtype
-    S = t.tile_entities
-    Kc = t.chunk_tiles
-    n_chunks = -(-K // Kc)
-    Kp = n_chunks * Kc
-    max_fin = t.max_fin
-    B = t.n_cols
-
-    # own-table weight rows per (tile, slot): tiny ([K, S, 2+R]); the
-    # kernel reconstructs the own contribution (incl. its precomputed
-    # qs column) from these with a one-hot matmul, so own rows are
-    # never gathered at [N] scale
-    wv_own = _pad_zero_row(own_rows)
-    wvsl = wv_own[t.ent_slots]  # [K, S, 2+R]
-
-    def pad_k(arr, fill, tile_shape):
-        flat = arr.reshape((K,) + tile_shape)
-        if Kp != K:
-            pad = jnp.full(((Kp - K),) + tile_shape, fill, flat.dtype)
-            flat = jnp.concatenate([flat, pad])
-        return flat.reshape((n_chunks, Kc) + tile_shape)
-
-    xs = dict(
-        slot_f=pad_k(t.slot_f, float(S), (T,)),
-        cont_in=pad_k(t.cont_in, 0, ()),
-        cont_out=pad_k(t.cont_out, 0, ()),
-        last_slot=pad_k(t.last_slot, 0, ()),
-        wvsl=pad_k(wvsl, 0.0, (S, rank + 2)),
-        cross=[
-            pad_k(m, t2.n_cols, (T,))
-            for t2i, (m, t2) in enumerate(
-                zip(plan.cross_ent[ti], plan.tables)
-            )
-            if t2i != ti
-        ],
-        tau=pad_k(tau_tile, 0.0, (T,)),
-        fin_win=t.fin_win,
-        fin_idx=t.fin_idx,
-        fin_mask=t.fin_mask,
-    )
     others = [
-        (t2, eff[t2i])
-        for t2i, t2 in enumerate(plan.tables)
-        if t2i != ti
+        (t2i, t2) for t2i, t2 in enumerate(plan.tables) if t2i != ti
     ]
-
-    def chunk_body(carry, xc):
-        gram_carry, G = carry
-        # the OTHER tables' gathered [w | V | qs] rows feed the kernel
-        # as-is (a bitcast, no relayout); the kernel sums their
-        # lin/Q/qs contributions on the VPU in VMEM.  Materialising
-        # the sums here instead (round-2 layout) cost ~150 ms of a
-        # 606 ms ML-10M rank-32 sweep in [N, R]-scale slice-adds, the
-        # meta stack, and slot layout copies.
-        gths = []
-        for (t2, eff2), mc in zip(others, xc["cross"]):
-            gth = _eff_rows(w, V, t2, eff2, mc.reshape(Kc * T))
-            gths.append(gth.reshape(Kc, T, 2 + rank))
-        aux2 = jnp.stack([xc["slot_f"], xc["tau"]], axis=1)
-        flat_c, gram_carry = fused_tile_gram_cross(
-            aux2, tuple(gths), xc["wvsl"],
-            xc["cont_in"], xc["cont_out"], xc["last_slot"], S=S,
-            carry_in=gram_carry, interpret=interpret,
-            fast_matmul=cfg.gram_fast_matmul or False,
-            tiles_per_step=gram_tiles_per_step(T, S, rank),
-        )
-        # consume this chunk's finalized entities into G: a masked
-        # dynamic-update-slice over a contiguous entity window — the
-        # full [K*S, D, D] partial array never exists (it would be
-        # ~84 GB at rank 128 / 1e7 rows)
-        # flat_c rows are Dp-strided (Dp = D rounded to 8); keep D
-        vals = flat_c[xc["fin_idx"]][:, :D, :]  # [max_fin, D, D]
-        win = xc["fin_win"]
-        zero = jnp.zeros((), win.dtype)
-        old = lax.dynamic_slice(
-            G, (win, zero, zero), (max_fin, D, D)
-        )
-        msk = (xc["fin_mask"] > 0)[:, None, None]
-        G = lax.dynamic_update_slice(
-            G, jnp.where(msk, vals, old), (win, zero, zero)
-        )
-        return (gram_carry, G), None
-
-    carry0 = (
-        jnp.zeros((D, D), dtype),
-        jnp.zeros((B, D, D), dtype),
+    return table_gram(
+        _pad_zero_row(own_rows),
+        t.ent_of_tile_row,
+        [_pad_zero_row(_src_table(w, V, t2, eff[t2i]))
+         for t2i, t2 in others],
+        [plan.cross_ent[ti][t2i] for t2i, _ in others],
+        tau_tile, t.slot, t.seg, t.ent_slots,
+        rank=V.shape[1], n_entities=t.n_cols, tile_rows=t.tile_rows,
+        tile_entities=t.tile_entities, chunk_tiles=t.chunk_tiles,
+        impl=gram_impl,
     )
-    if n_chunks == 1:
-        xc = jax.tree_util.tree_map(lambda a: a[0], xs)
-        (_, G), _ = chunk_body(carry0, xc)
-    else:
-        (_, G), _ = lax.scan(chunk_body, carry0, xs)
-    return G
 
 
 def _table_pass(
@@ -385,7 +291,7 @@ def _table_pass(
     noise_V,  # [F, R]
     tau_tile,  # [NT] latent target in this table's tile order (pad 0)
     cfg: GibbsConfig,
-    interpret: bool,
+    gram_impl: str,
     want_moments: bool = False,
     eff=None,
 ):
@@ -408,16 +314,7 @@ def _table_pass(
         eff = eff_tables(plan, w, V)
 
     G = _build_table_gram(
-        plan, ti, w, V, eff,
-        jnp.concatenate(
-            [
-                w_t[:, None],
-                V_t,
-                jnp.sum(V_t * V_t, axis=1)[:, None],
-            ],
-            axis=1,
-        ),
-        tau_tile, cfg, interpret,
+        plan, ti, w, V, eff, _wv_table(w, V, t), tau_tile, gram_impl,
     )
 
     nw_t = noise_w[t.noise_feat]
@@ -431,7 +328,7 @@ def _table_pass(
     if use_rs:
         # SPMD, reduce-scatter layout: each device receives the summed
         # Gram for ITS contiguous entity window only ((n−1)/n of the
-        # psum's ICI bytes), draws that window's weights (per-feature
+        # psum's bytes), draws that window's weights (per-feature
         # noise ⇒ identical values regardless of which device computes
         # them), and the [Bw, 1+R] drawn weights are all-gathered —
         # a factor ~(D²/(1+R)) less traffic than psum'ing [B, D, D].
@@ -493,8 +390,7 @@ def _entity_draws(G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w,
     true-residual statistics follow exactly from z₁ = z₁⁰ + w0·z₀:
         E1 = E1⁰ + w0·card,  Σeφ_r = Σe⁰φ_r + w0·Σφ_r,
         Σe² = Σe⁰² + 2·w0·E1⁰ + w0²·card
-    ([B]-sized arithmetic — the w0 operand and the per-sweep aux
-    rebuild the kernel would otherwise need cost ~1 KB/row of HBM).
+    ([B]-sized arithmetic, so the Gram pass needs no w0 operand).
 
     Operates on any contiguous entity window (the full table, or one
     device's reduce-scatter shard); all operands are window-sliced.
@@ -611,7 +507,7 @@ def _ea_table_pass(
     noise_V,
     tau_tile,
     cfg: GibbsConfig,
-    interpret: bool,
+    gram_impl: str,
     want_moments: bool = False,
     eff=None,
 ):
@@ -642,7 +538,7 @@ def _ea_table_pass(
     own = eff[ti]  # [B, 2+R] = [w̃ | Ṽ | qs̃]
 
     G = _build_table_gram(
-        plan, ti, w, V, eff, own, tau_tile, cfg, interpret,
+        plan, ti, w, V, eff, own, tau_tile, gram_impl,
     )
     if cfg.axis_name is not None:
         # side features couple entities across the whole table, so the
@@ -757,13 +653,14 @@ def categorical_sweep(
     y_tiles: Tuple[jax.Array, ...],
     key,
     cfg: GibbsConfig,
-    interpret: bool = False,
+    gram_impl: str = "xla",
 ) -> CategoricalState:
     """One full Gibbs iteration on the categorical fast path.
 
     ``y_tiles[t]`` is y gathered to table t's tile order (precomputed
     once per fit; for the probit tasks the latent tau is gathered here
-    instead, once per sweep)."""
+    instead, once per sweep).  ``gram_impl`` is an ops/gram.IMPLS
+    entry (gram.choose_impl picks it for the platform)."""
     core = state.core
     dtype = core.V.dtype
     n = plan.n_real
@@ -829,7 +726,7 @@ def categorical_sweep(
         )
         w, V, moments = pass_fn(
             plan, ti, w, V, w0, alpha, lambda_w, mu_w, lambda_V, mu_V,
-            plan.group_index, noise_w, noise_V, tau_tile, cfg, interpret,
+            plan.group_index, noise_w, noise_V, tau_tile, cfg, gram_impl,
             want_moments=(
                 cfg.task == TASK_REGRESSION and ti == n_tables - 1
             ),

@@ -56,11 +56,7 @@ from jax import lax
 from ..design_categorical import CategoricalPlan, CategoricalTable
 from .categorical import _pad_zero_row, _row_validity, _table_slice
 from .gibbs import TASK_CLASSIFICATION, TASK_REGRESSION
-from .pallas_gram import (
-    fused_tile_gram,
-    fused_tile_gram_cross,
-    gram_tiles_per_step,
-)
+from .gram import table_gram
 from .special import (
     mean_var_truncated_normal_left,
     mean_var_truncated_normal_right,
@@ -89,23 +85,27 @@ jax.tree_util.register_dataclass(
 )
 
 
-def _ext_rows(w, w_var, V, V_var, t2: CategoricalTable, idx):
-    """Gather [w | w_var | V | s | sV | qs] rows ([*, 3+3R]) by entity
-    (pad→0).  qs = Σ_r V̄² is precomputed in the [B]-sized source so
-    Gram/refresh consumers never square-and-reduce gathered rows (same
-    trick as the Gibbs ops/categorical._wv_rows)."""
+def _ext_table(w, w_var, V, V_var, t2: CategoricalTable):
+    """Per-entity [w | w_var | V | s | sV | qs] rows ([B, 3+3R]).
+    qs = Σ_r V̄² is precomputed in the [B]-sized source so Gram/refresh
+    consumers never square-and-reduce gathered rows (same trick as the
+    Gibbs ops/categorical._wv_table)."""
     w_t = _table_slice(w, t2)
     wv_t = _table_slice(w_var, t2)
     V_t = _table_slice(V, t2)
     s_t = _table_slice(V_var, t2)
-    ext = jnp.concatenate(
+    return jnp.concatenate(
         [
             w_t[:, None], wv_t[:, None], V_t, s_t, s_t * V_t,
             jnp.sum(V_t * V_t, axis=1)[:, None],
         ],
         axis=1,
     )
-    return _pad_zero_row(ext)[idx]
+
+
+def _ext_rows(w, w_var, V, V_var, t2: CategoricalTable, idx):
+    """_ext_table rows gathered by entity (pad→0)."""
+    return _pad_zero_row(_ext_table(w, w_var, V, V_var, t2))[idx]
 
 
 @dataclasses.dataclass
@@ -218,131 +218,48 @@ def _vi_table_pass(
     group_index,
     tau_tile,  # [NT] mean target in this table's tile order (pad 0)
     cfg: VariationalConfig,
-    interpret: bool,
+    gram_impl: str,
     eff=None,  # vi_eff_tables result (EA designs)
 ):
     """One table's CAVI w update + factor scan in entity space."""
     t = plan.tables[ti]
     rank = V.shape[1]
-    D = 3 * rank + 2
-    # the CAVI updates read only Gram rows [1 | e | q] — build, carry,
-    # and reduce the [rows_r, D] rectangle instead of the full [D, D]
-    rows_r = 2 + rank
-    K = t.n_tiles
-    T = t.tile_rows
-    dtype = V.dtype
-
+    # the CAVI updates read only Gram rows [1 | e | q]: table_gram
+    # builds the [2+R, 3R+2] rectangle instead of the full square
     w_t = _table_slice(w, t)
     V_t = _table_slice(V, t)
     s_t = _table_slice(V_var, t)
     g_t = group_index[t.col_offset : t.col_offset + t.n_cols]
 
-    S = t.tile_entities
-    Kc = t.chunk_tiles
-    n_chunks = -(-K // Kc)
-    Kp = n_chunks * Kc
-    max_fin = t.max_fin
     B = t.n_cols
-
-    # own [w | V | qs] rows per (tile, slot) for in-kernel
-    # reconstruction (qs = Σ V̄², precomputed like the Gibbs path)
-    wv_own = _pad_zero_row(
-        jnp.concatenate(
-            [
-                w_t[:, None],
-                V_t,
-                jnp.sum(V_t * V_t, axis=1)[:, None],
-            ],
-            axis=1,
-        )
-    )
-    wvsl = wv_own[t.ent_slots]  # [K, S, 2+R]
-
-    def pad_k(arr, fill, tile_shape):
-        flat = arr.reshape((K,) + tile_shape)
-        if Kp != K:
-            pad = jnp.full(((Kp - K),) + tile_shape, fill, flat.dtype)
-            flat = jnp.concatenate([flat, pad])
-        return flat.reshape((n_chunks, Kc) + tile_shape)
-
-    xs = dict(
-        slot_f=pad_k(t.slot_f, float(S), (T,)),
-        cont_in=pad_k(t.cont_in, 0, ()),
-        cont_out=pad_k(t.cont_out, 0, ()),
-        last_slot=pad_k(t.last_slot, 0, ()),
-        wvsl=pad_k(wvsl, 0.0, (S, rank + 2)),
-        cross=[
-            pad_k(m, t2.n_cols, (T,))
-            for t2i, (m, t2) in enumerate(
-                zip(plan.cross_ent[ti], plan.tables)
-            )
-            if t2i != ti
-        ],
-        tau=pad_k(tau_tile, 0.0, (T,)),
-        fin_win=t.fin_win,
-        fin_idx=t.fin_idx,
-        fin_mask=t.fin_mask,
-    )
     if eff is None:
         eff = [None] * len(plan.tables)
+
+    def src(t2, eff2):
+        # [w | V | σ | τ | qs]: the Gram's z block is [φ | σ | τ]
+        if eff2 is None:
+            ext = _ext_table(w, w_var, V, V_var, t2)
+        else:
+            ext = jnp.concatenate([eff2.ext, eff2.qs[:, None]], axis=1)
+        return _pad_zero_row(
+            jnp.concatenate([ext[:, :1], ext[:, 2:]], axis=1)
+        )
+
     others = [
-        (t2, eff[t2i])
-        for t2i, t2 in enumerate(plan.tables)
-        if t2i != ti
+        (t2i, t2) for t2i, t2 in enumerate(plan.tables) if t2i != ti
     ]
-    W_gth = 3 + 3 * rank  # [w | wvar | V | σ | sv | qs]
-
-    def chunk_body(carry, xc):
-        gram_carry, G = carry
-        # raw [ext | qs] gather rows feed the cross kernel as-is
-        # (q_lo=2, n_extra=2R: the σ/sv̄ columns ride the z block); the
-        # round-3 layout materialized five [NT, R]-scale accumulators
-        # plus meta/q_ext re-packs between the gathers and the meta
-        # kernel — all dead HBM traffic on this bandwidth-bound device
-        gths = []
-        for (t2, eff2), mc in zip(others, xc["cross"]):
-            idx = mc.reshape(Kc * T)
-            if eff2 is None:
-                rows = _ext_rows(w, w_var, V, V_var, t2, idx)
-            else:
-                packed = jnp.concatenate(
-                    [eff2.ext, eff2.qs[:, None]], axis=1
-                )
-                rows = _pad_zero_row(packed)[idx]
-            gths.append(rows.reshape(Kc, T, W_gth))
-        aux2 = jnp.stack([xc["slot_f"], xc["tau"]], axis=1)
-        flat_c, gram_carry = fused_tile_gram_cross(
-            aux2, tuple(gths), xc["wvsl"],
-            xc["cont_in"], xc["cont_out"], xc["last_slot"], S=S,
-            carry_in=gram_carry, interpret=interpret,
-            fast_matmul=cfg.gram_fast_matmul or False,
-            q_lo=2, n_extra=2 * rank, out_rows=rows_r,
-            tiles_per_step=gram_tiles_per_step(
-                T, S, 3 * rank, w_cols=1 + rank, gth_cols=W_gth
-            ),
-        )
-        vals = flat_c[xc["fin_idx"]][:, :rows_r, :]
-        win = xc["fin_win"]
-        zero = jnp.zeros((), win.dtype)
-        old = lax.dynamic_slice(
-            G, (win, zero, zero), (max_fin, rows_r, D)
-        )
-        msk = (xc["fin_mask"] > 0)[:, None, None]
-        G = lax.dynamic_update_slice(
-            G, jnp.where(msk, vals, old), (win, zero, zero)
-        )
-        return (gram_carry, G), None
-
-    Dpr = -(-rows_r // 8) * 8
-    carry0 = (
-        jnp.zeros((Dpr, D), dtype),
-        jnp.zeros((B, rows_r, D), dtype),
+    own_rows = jnp.concatenate(
+        [w_t[:, None], V_t, jnp.sum(V_t * V_t, axis=1)[:, None]], axis=1
     )
-    if n_chunks == 1:
-        xc = jax.tree_util.tree_map(lambda a: a[0], xs)
-        (_, G), _ = chunk_body(carry0, xc)
-    else:
-        (_, G), _ = lax.scan(chunk_body, carry0, xs)
+    G = table_gram(
+        _pad_zero_row(own_rows), t.ent_of_tile_row,
+        [src(t2, eff[t2i]) for t2i, t2 in others],
+        [plan.cross_ent[ti][t2i] for t2i, _ in others],
+        tau_tile, t.slot, t.seg, t.ent_slots,
+        rank=rank, n_entities=B, tile_rows=t.tile_rows,
+        tile_entities=t.tile_entities, chunk_tiles=t.chunk_tiles,
+        impl=gram_impl,
+    )
 
     wv_t = _table_slice(w_var, t)
     use_rs = (
@@ -356,7 +273,7 @@ def _vi_table_pass(
         # path): each device receives the summed Gram for ITS
         # contiguous entity window, performs that window's
         # deterministic CAVI updates, and the four [Bw(,R)] update
-        # results are all-gathered — ~D²/(2+2R)× less ICI traffic
+        # results are all-gathered — ~D²/(2+2R)× less traffic
         # than psum'ing the [B, D, D] Gram (D = 3R+2 here).
         Bw = B // cfg.n_devices
         Gw = lax.psum_scatter(
@@ -510,8 +427,8 @@ def _update_gram_lanes_u(G, s_vec, u_vec, D):
     # rectangle's rows (s is supported on rows {0, q} ⊂ rect; Ĝ is
     # symmetric, so this is Ĝ·s over ALL j) — the round-2 r_sum-einsum
     # formulation materialized G*s ([D², B]) first, an extra full-Gram
-    # HBM pass per color (the EA side scans run ~2k sequential colors
-    # per sweep)
+    # device-memory pass per color (the EA side scans run ~2k
+    # sequential colors per sweep)
     g = jnp.einsum(
         "kjb,kb->jb", G.reshape(rows_r, D, B), s_vec[:rows_r],
         precision=jax.lax.Precision.HIGHEST,
@@ -704,7 +621,7 @@ def _vi_ea_table_pass(
     group_index,
     tau_tile,
     cfg: VariationalConfig,
-    interpret: bool,
+    gram_impl: str,
     eff,
 ):
     """Entity+attribute table pass for CAVI: the side features'
@@ -712,7 +629,7 @@ def _vi_ea_table_pass(
     the Gibbs _ea_table_pass (ops/categorical.py) with variance
     bookkeeping.
 
-    The tile kernel builds the per-block-row Gram over
+    table_gram builds the per-block-row Gram over
     z = [1 | e | φ_o | a_o | b_o | c_o] from the OTHER tables'
     contributions (D = 4R+2); converting with the own-table per-entity
     constants (Ṽ and the ã/b̃/c̃ variance reductions ride the z₀ = 1
@@ -729,119 +646,45 @@ def _vi_ea_table_pass(
     # conversion and the T G T' color evolution (see
     # _update_gram_lanes_u) — ~(4R+2)/(R+2) x less Gram traffic
     rows_r = 2 + rank
-    K = t.n_tiles
-    T = t.tile_rows
     dtype = V.dtype
-    S = t.tile_entities
-    Kc = t.chunk_tiles
-    n_chunks = -(-K // Kc)
-    Kp = n_chunks * Kc
-    max_fin = t.max_fin
     B = t.n_cols
     own = eff[ti]
 
-    # own mean rows for in-kernel score reconstruction ([w̃ | Ṽ]) and
-    # the own QS−Q̃² correction folded into the qs operand
-    own_rows = jnp.concatenate(
-        [own.ext[:, 0:1], own.ext[:, 2 : 2 + rank]], axis=1
-    )
-    wvsl = _pad_zero_row(own_rows)[t.ent_slots]  # [K, S, 1+R]
-    ds_pad = _pad_zero_row(
-        (own.qs - jnp.sum(own.ext[:, 2 : 2 + rank] ** 2, axis=1))[
-            :, None
-        ]
-    )
+    def src(t2, eff2):
+        # [lin | φ | a | b | c | qs]; for one-hot tables (x = 1) the
+        # x-weighted variance sums a = c = s and b = sV̄
+        if eff2 is None:
+            ext = _ext_table(w, w_var, V, V_var, t2)
+            s2 = ext[:, 2 + rank : 2 + 2 * rank]
+            cols = [ext[:, :1], ext[:, 2 : 2 + rank], s2,
+                    ext[:, 2 + 2 * rank : 2 + 3 * rank], s2,
+                    ext[:, -1:]]
+        else:
+            cols = [eff2.ext[:, :1], eff2.ext[:, 2 : 2 + rank],
+                    eff2.a1, eff2.b2,
+                    eff2.ext[:, 2 + rank : 2 + 2 * rank],
+                    eff2.qs[:, None]]
+        return _pad_zero_row(jnp.concatenate(cols, axis=1))
 
-    def pad_k(arr, fill, tile_shape):
-        flat = arr.reshape((K,) + tile_shape)
-        if Kp != K:
-            pad = jnp.full(((Kp - K),) + tile_shape, fill, flat.dtype)
-            flat = jnp.concatenate([flat, pad])
-        return flat.reshape((n_chunks, Kc) + tile_shape)
-
-    xs = dict(
-        src=pad_k(t.src, plan.n_rows, (T,)),
-        slot=pad_k(t.slot, 0, (T,)),
-        cont_in=pad_k(t.cont_in, 0, ()),
-        cont_out=pad_k(t.cont_out, 0, ()),
-        last_slot=pad_k(t.last_slot, 0, ()),
-        wvsl=pad_k(wvsl, 0.0, (S, rank + 1)),
-        ent=pad_k(t.ent_of_tile_row, B, (T,)),
-        cross=[
-            pad_k(m, t2.n_cols, (T,))
-            for t2i, (m, t2) in enumerate(
-                zip(plan.cross_ent[ti], plan.tables)
-            )
-            if t2i != ti
-        ],
-        tau=pad_k(tau_tile, 0.0, (T,)),
-        fin_win=t.fin_win,
-        fin_idx=t.fin_idx,
-        fin_mask=t.fin_mask,
-    )
     others = [
-        (t2, eff[t2i])
-        for t2i, t2 in enumerate(plan.tables)
-        if t2i != ti
+        (t2i, t2) for t2i, t2 in enumerate(plan.tables) if t2i != ti
     ]
-
-    def chunk_body(carry, xc):
-        gram_carry, G = carry
-        src_c = xc["src"].reshape(Kc * T)
-        ones_c = (src_c < plan.n_rows).astype(dtype)
-        lin_o = jnp.zeros((Kc * T,), dtype)
-        Q_o = jnp.zeros((Kc * T, rank), dtype)
-        qs_o = jnp.zeros((Kc * T,), dtype)
-        a_o = jnp.zeros((Kc * T, rank), dtype)
-        b_o = jnp.zeros((Kc * T, rank), dtype)
-        c_o = jnp.zeros((Kc * T, rank), dtype)
-        for (t2, eff2), mc in zip(others, xc["cross"]):
-            gth, qs2, a12, b22 = _vi_other_gather(
-                w, w_var, V, V_var, t2, eff2, mc.reshape(Kc * T), rank
-            )
-            lin_o = lin_o + gth[:, 0]
-            Q_o = Q_o + gth[:, 2 : 2 + rank]
-            qs_o = qs_o + qs2
-            c_o = c_o + gth[:, 2 + rank : 2 + 2 * rank]
-            b_o = b_o + b22
-            a_o = a_o + a12
-        qs_o = qs_o + ds_pad[xc["ent"].reshape(Kc * T)][:, 0]
-        lin_tau = ones_c * w0 + lin_o - xc["tau"].reshape(Kc * T)
-        meta = jnp.stack([ones_c, lin_tau, qs_o], axis=1).reshape(
-            Kc, T, 3
-        )
-        q_ext = jnp.concatenate(
-            [Q_o, a_o, b_o, c_o], axis=1
-        ).reshape(Kc, T, 4 * rank)
-        flat_c, gram_carry = fused_tile_gram(
-            meta, q_ext, xc["slot"], xc["wvsl"],
-            xc["cont_in"], xc["cont_out"], xc["last_slot"], S=S,
-            carry_in=gram_carry, interpret=interpret,
-            fast_matmul=cfg.gram_fast_matmul or False,
-            out_rows=rows_r,
-        )
-        vals = flat_c[xc["fin_idx"]][:, :rows_r, :]
-        win = xc["fin_win"]
-        zero = jnp.zeros((), win.dtype)
-        old = lax.dynamic_slice(
-            G, (win, zero, zero), (max_fin, rows_r, D)
-        )
-        msk = (xc["fin_mask"] > 0)[:, None, None]
-        G = lax.dynamic_update_slice(
-            G, jnp.where(msk, vals, old), (win, zero, zero)
-        )
-        return (gram_carry, G), None
-
-    Dpr = -(-rows_r // 8) * 8
-    carry0 = (
-        jnp.zeros((Dpr, D), dtype),
-        jnp.zeros((B, rows_r, D), dtype),
+    # own [w̃ | Ṽ | qs̃]: qs̃ = Σx²v̄² carries the own QS − Ṽ² term
+    own_rows = jnp.concatenate(
+        [own.ext[:, 0:1], own.ext[:, 2 : 2 + rank], own.qs[:, None]],
+        axis=1,
     )
-    if n_chunks == 1:
-        xc = jax.tree_util.tree_map(lambda a: a[0], xs)
-        (_, G), _ = chunk_body(carry0, xc)
-    else:
-        (_, G), _ = lax.scan(chunk_body, carry0, xs)
+    # this pass's Gram keeps w0 inside e (the conversion below assumes
+    # it): shifting the target by w0 does exactly that
+    G = table_gram(
+        _pad_zero_row(own_rows), t.ent_of_tile_row,
+        [src(t2, eff[t2i]) for t2i, t2 in others],
+        [plan.cross_ent[ti][t2i] for t2i, _ in others],
+        tau_tile - w0, t.slot, t.seg, t.ent_slots,
+        rank=rank, n_entities=B, tile_rows=t.tile_rows,
+        tile_entities=t.tile_entities, chunk_tiles=t.chunk_tiles,
+        impl=gram_impl,
+    )
 
     if cfg.axis_name is not None:
         # side features couple entities across the whole table: psum
@@ -1079,7 +922,7 @@ def categorical_vi_sweep(
     y: jax.Array,
     y_tiles: Tuple[jax.Array, ...],
     cfg: VariationalConfig,
-    interpret: bool = False,
+    gram_impl: str = "xla",
 ) -> CategoricalVIState:
     """One full CAVI iteration on the entity-space fast path."""
     core = state.core
@@ -1142,7 +985,7 @@ def categorical_vi_sweep(
             w, w_var, V, V_var = _vi_ea_table_pass(
                 plan, ti, w, w_var, V, V_var, w0, alpha,
                 lambda_w, mu_w, lambda_V, mu_V,
-                plan.group_index, tau_tile, cfg, interpret, eff,
+                plan.group_index, tau_tile, cfg, gram_impl, eff,
             )
             # the pass changed this table's side moments — later
             # tables' cross-gathers and the final refresh must see
@@ -1152,7 +995,7 @@ def categorical_vi_sweep(
             w, w_var, V, V_var = _vi_table_pass(
                 plan, ti, w, w_var, V, V_var, w0, alpha,
                 lambda_w, mu_w, lambda_V, mu_V,
-                plan.group_index, tau_tile, cfg, interpret, eff=eff,
+                plan.group_index, tau_tile, cfg, gram_impl, eff=eff,
             )
 
     # refresh (e, e_var_sum) + task finish + ELBO

@@ -1,4 +1,4 @@
-"""Chromatic Gibbs sweep for Bayesian FMs — fully vectorized for TPU.
+"""Chromatic Gibbs sweep for Bayesian FMs, fully vectorized.
 
 Re-derivation of the reference's serial per-coordinate sampler
 (/root/reference/include/myfm/FMTrainer.hpp:122-522) with identical
@@ -12,7 +12,7 @@ conditional distributions:
   scatter step replaces up to tens of thousands of serial scalar draws.
 * RelationBlock features are drawn from block-level statistics.  Where
   the reference maintains incrementally (un)synchronized caches
-  (FMTrainer.hpp:396-482), the TPU sweep keeps ground-truth per-row
+  (FMTrainer.hpp:396-482), this sweep keeps ground-truth per-row
   residuals ``e`` and factor sums ``q`` and recomputes the four block
   aggregates (Σe, Σq, Σq², Σeq per block row) with O(n_rows)
   segment-sums before each color — identical math, no serial state.
@@ -38,6 +38,10 @@ from jax import lax
 from ..design import BlockPlan, ColorPlan, DesignPlan
 from .forward import factor_q_single, predict_score
 from .special import truncated_std_normal_onesided
+
+# float32 contractions are pinned: on the GPU the default precision
+# runs them in TF32 (~1e-3 relative), enough to bias the draws
+_HI = lax.Precision.HIGHEST
 
 TASK_REGRESSION = "regression"
 TASK_CLASSIFICATION = "classification"
@@ -82,34 +86,14 @@ class GibbsConfig:
     # R-dim factor rows are drawn jointly (ops/gibbs.sweep_V_joint).
     joint_rows: bool = False
     # static unroll factor for the color-stack scans on the joint path
-    # (measured: lax.scan costs ~370 us/step at unroll=1 on a v5e but
-    # ~37 us/step at unroll>=2; see ops/joint.py)
+    # (fewer loop iterations per sweep; see ops/joint.py)
     joint_unroll: int = 4
-    # run the joint sweep's stacked color tail as ONE Pallas kernel
-    # with the [D², B] Gram resident in VMEM (ops/pallas_joint_tail.py)
-    # instead of a lax.scan: kills the per-color scan machinery and the
-    # HBM round-trips of the Gram carry.  None = auto (currently the
-    # scan path, until the Mosaic lowering is hardware-validated —
-    # scripts/bench_joint_tail.py); True forces the kernel (TPU + f32
-    # only, validated at trainer construction); "interpret" runs the
-    # kernel in interpret mode (CPU tests — unrolls the grid, small
-    # problems only).
-    joint_pallas_tail: Optional[object] = None
     # SPMD fast path: reduce-scatter each table's [B, D, D] Gram by
     # entity window and all-gather only the [B, 1+R] drawn weights —
-    # ~(D²/(1+R))x less ICI traffic than psum'ing the full Gram (e.g.
+    # ~(D²/(1+R))x less traffic than psum'ing the full Gram (e.g.
     # ~2.6 GB -> ~75 MB per sweep at B=80k, rank 128).  Falls back to
     # the psum when the entity count doesn't divide the mesh.
     gram_reduce_scatter: bool = True
-    # fast-path Gram matmul mode.  None = auto: float32 on the real
-    # TPU resolves (after per-mode on-device self-checks,
-    # ops/pallas_gram.gram_fast_selfcheck) to the single-pass "bf16"
-    # matmul at rank >= 64 (a third of the split mode's MXU systolic
-    # passes — the rank-128 flagship's floor) and the 3-pass
-    # bf16-split otherwise (~1.5e-5 relative, half of HIGHEST's
-    # passes).  True forces split, False forces HIGHEST (6-pass),
-    # "bf16" forces single-pass.
-    gram_fast_matmul: Optional[object] = None
 
     @property
     def cutpoint_group_classes(self) -> Tuple[int, ...]:
@@ -593,8 +577,8 @@ def sweep_V(plan: DesignPlan, e, V, alpha, lambda_V, mu_V, key, axis=None):
 # Drawing rows jointly is a *blocked* Gibbs update: the stationary
 # posterior is identical, mixing is no worse, and the factor dimension
 # collapses from R sequential passes over the colors to ONE pass — the
-# per-feature cost moves onto batched R×R Cholesky factorizations (MXU
-# work) instead of scan-step overhead.  The chain differs from the
+# per-feature cost moves onto batched R×R Cholesky factorizations (dense
+# batched work) instead of scan-step overhead.  The chain differs from the
 # reference's per-(j, f) scan, which is why this runs only under the
 # opt-in ``sweep_strategy="joint"`` (the default colored sweep remains
 # the reference-order parity oracle).  The blocked ≡ flattened contract
@@ -719,7 +703,9 @@ def _V_joint_block_color(b: BlockPlan, c: ColorPlan, stats, V, alpha,
 
     S = seg(S_e)
     t = seg(t_e)
-    rhs = alpha * (jnp.einsum("pfg,pg->pf", S, v_old) - t) + lam * mu
+    rhs = alpha * (
+        jnp.einsum("pfg,pg->pf", S, v_old, precision=_HI) - t
+    ) + lam * mu
     v_new = _chol_mean_sample(S, rhs, lam, noise[c.feat], alpha)
     delta = v_new - v_old
     A = jnp.zeros((B, R), v_old.dtype).at[m].add(
@@ -736,11 +722,11 @@ def _update_joint_stats(stats, A, b2, card):
     """Exact O(B·R²) aggregate recurrences under e += q·A − b2,
     q += A (per block row; old values on every right-hand side)."""
     E1, Q1, EQ, QQ = stats
-    QA = jnp.einsum("br,br->b", Q1, A)
+    QA = jnp.einsum("br,br->b", Q1, A, precision=_HI)
     E1n = E1 + QA - b2 * card
     EQn = (
         EQ
-        + jnp.einsum("bfg,bg->bf", QQ, A)
+        + jnp.einsum("bfg,bg->bf", QQ, A, precision=_HI)
         + E1[:, None] * A
         + QA[:, None] * A
         - b2[:, None] * Q1
@@ -786,7 +772,7 @@ def _V_joint_block_stack(b: BlockPlan, stack, e, q, V, alpha, lam_g,
             b, c, stats, V_, alpha, lam_g, mu_g, noise, group_index,
         )
         stats = _update_joint_stats(stats, A, b2, card)
-        Stn = St + jnp.einsum("br,br->b", A, At)
+        Stn = St + jnp.einsum("br,br->b", A, At, precision=_HI)
         return (stats, At + A, Stn, B2t + b2, V_), None
 
     carry0 = ((E1, Q1, EQ, QQ), zA, zs, zs, V)
@@ -969,7 +955,6 @@ def gibbs_sweep(plan: DesignPlan, state: GibbsState, y, key,
         w, V, e, _ = sweep_joint_u(
             plan, e, w, state.V, alpha, lambda_w, mu_w, lambda_V,
             mu_V, k_v, axis, unroll=cfg.joint_unroll, q=None,
-            pallas_tail=cfg.joint_pallas_tail or False,
         )
     elif cfg.joint_rows:
         V, e = sweep_V_joint(

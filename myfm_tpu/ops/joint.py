@@ -15,14 +15,14 @@ stationary distribution is identical.  This supersedes the round-1
 two-pass joint sweep (sweep_w + sweep_V_joint in ops/gibbs.py, kept as
 the ``fit_linear=False`` fallback).
 
-TPU-first design decisions (measured on a v5e, scripts/microbench_*):
+Design decisions:
 
-* ``lax.scan`` costs ~370 µs/step at unroll=1 but ~37 µs/step at
-  unroll≥2 — every color stack scans with a static unroll factor.
-* XLA's batched ``jnp.linalg.cholesky`` + triangular solves cost
-  280-470 µs *per scan step* at [Pf, 11, 11]; the hand-unrolled
-  Cholesky/solve below is ~5 µs because every intermediate is a plain
-  [batch]-vector op with no XLA control flow.
+* every color stack scans with a static unroll factor (fewer loop
+  iterations, each with more fused work);
+* the batched Cholesky/solve below is hand-unrolled: every
+  intermediate is a plain [batch]-vector op with no XLA control flow,
+  where ``jnp.linalg.cholesky`` + triangular solves would add library
+  calls inside every scan step at these tiny [Pf, D', D'] sizes.
 * Block statistics live in ONE symmetric per-block-row Gram
       Ĝ_m = Σ_{n: m(n)=m} z zᵀ,  z = [1, e_n, q_n] ∈ R^{R+2},
   which contains card, Σe, Σq, Σeq, Σqqᵀ (and Σe², used by nothing but
@@ -30,7 +30,7 @@ TPU-first design decisions (measured on a v5e, scripts/microbench_*):
   e += a0 + q·A, q += A (per block row) are the linear map
   z ← T z, T = I + e₁sᵀ + ŝe₀ᵀ with s = [a0, 0, A], ŝ = [0, 0, A], so
   the aggregates evolve EXACTLY as Ĝ ← T Ĝ Tᵀ, implemented as two
-  symmetric rank-structure updates (≈5 µs/step):
+  symmetric rank-structure updates:
       p = Ĝs + ½(sᵀĜs)e₁ + (sᵀĜe₀)ŝ,   r = Ĝe₀ + ½Ĝ₀₀ŝ,
       Ĝ += e₁pᵀ + pe₁ᵀ + ŝrᵀ + rŝᵀ.
 * Per-entry draw statistics are gathered from Ĝ once and reduced with
@@ -80,8 +80,7 @@ def chol_solve_sample(A, rhs, xi, pivot_floor=None):
     L⁻ᵀ(L⁻¹rhs + ξ) via one forward and one backward substitution (two
     triangular solves — the textbook three-solve form is one more).
     Everything is a [B]-vector op: no XLA While/Scan, so the whole draw
-    fuses into a handful of kernels (see module docstring for the
-    measured ~100x win over jnp.linalg.cholesky inside a scan).
+    fuses into a handful of kernels (see module docstring).
 
     ``pivot_floor`` [B, D]: a per-coordinate lower bound on the exact
     Cholesky pivots.  For A = αS + diag(λ) with S PSD, every Schur
@@ -175,7 +174,7 @@ def _draw_u(S, t, u_old, lam, mu, alpha, xi):
     """Draw u_new ~ p(u | rest) from (S, t) statistics (module doc)."""
     A = alpha * S + jax.vmap(jnp.diag)(lam)
     rhs = alpha * (
-        jnp.einsum("pfg,pg->pf", S, u_old) - t
+        jnp.einsum("pfg,pg->pf", S, u_old, precision=_HI) - t
     ) + lam * mu
     return solve_spd_sample(A, rhs, xi, lam)
 
@@ -243,8 +242,7 @@ def build_block_gram(b: BlockPlan, e, q, axis=None, row_chunk=1 << 20,
     chunked over rows so the temporary stays bounded.
 
     The outer products are computed in a FLAT [N, D'²] layout (static
-    index-vector take) — a [N, D', D'] intermediate would be padded by
-    the TPU tiling to [N, 16, 128] (≈10× HBM bloat)."""
+    index-vector take) that the scatter-add consumes row by row."""
     B = b.block_size
     R = q.shape[1]
     D = R + 2
@@ -373,8 +371,8 @@ def _update_gram(G, a0, A):
     s_vec = jnp.concatenate(
         [a0[:, None], jnp.zeros((B, 1), G.dtype), A], axis=1
     )
-    g = jnp.einsum("bij,bj->bi", G, s_vec)
-    sgs = jnp.einsum("bi,bi->b", s_vec, g)
+    g = jnp.einsum("bij,bj->bi", G, s_vec, precision=_HI)
+    sgs = jnp.einsum("bi,bi->b", s_vec, g, precision=_HI)
     e1 = jnp.zeros((D,), G.dtype).at[1].set(1.0)
     sh = s_vec.at[:, 0].set(0.0)
     p = g + 0.5 * sgs[:, None] * e1 + g[:, 0:1] * sh
@@ -402,7 +400,7 @@ def _joint_u_block_pass(b: BlockPlan, e, q, U, alpha, lam_gu, mu_gu,
         U, a0, A = _joint_u_block_color(
             b, c, G, U, alpha, lam_gu, mu_gu, noise, group_index
         )
-        Ct = Ct + a0 + jnp.einsum("br,br->b", A, Atot)
+        Ct = Ct + a0 + jnp.einsum("br,br->b", A, Atot, precision=_HI)
         Atot = Atot + A
         G = _update_gram(G, a0, A)
 
@@ -416,7 +414,9 @@ def _joint_u_block_pass(b: BlockPlan, e, q, U, alpha, lam_gu, mu_gu,
             U_, a0, A = _joint_u_block_color(
                 b, c, G_, U_, alpha, lam_gu, mu_gu, noise, group_index
             )
-            Ct_ = Ct_ + a0 + jnp.einsum("br,br->b", A, At_)
+            Ct_ = Ct_ + a0 + jnp.einsum(
+                "br,br->b", A, At_, precision=_HI
+            )
             At_ = At_ + A
             G_ = _update_gram(G_, a0, A)
             return (G_, At_, Ct_, U_), None
@@ -435,20 +435,18 @@ def _joint_u_block_pass(b: BlockPlan, e, q, U, alpha, lam_gu, mu_gu,
 # Dense (lanes-major) block pass — the fast path for the joint sweep
 # ---------------------------------------------------------------------------
 #
-# Profiling the ragged Ĝ pass (scripts/profile_joint.py) showed the scan
-# body dominated by dynamic-update-slice copies of the [B, D', D'] carry:
-# the TPU tiles the two minor dims to (8..16, 128), bloating a
-# [943, 12, 12] f32 array from 0.5 MB to ~7.7 MB, and every Ĝ row/col
-# update copied it.  The dense pass keeps everything "lanes-major":
+# The ragged Ĝ pass spends its scan body in dynamic-update-slice copies
+# of the [B, D', D'] carry (every Ĝ row/col update copies it).  The
+# dense pass keeps everything "lanes-major":
 #
-# * Ĝ is carried as [D', D', B] — B on the 128-lane axis, so the state
-#   is ~10x smaller physically and every update is a lane-parallel op;
+# * Ĝ is carried as [D'², B] — B minor, so every update is one
+#   elementwise op over contiguous B-vectors;
 # * per color, the ragged entry lists become B-length vectors
 #   (xw = x value at block row, segb = feature slot; a block row
 #   belongs to at most one feature per color), so the draw statistics
 #   need NO gather at all: ONE matmul  [D'², B] @ [B, 4·Pf]  computes
 #   Σx²Ĝ, Σx³Ĝ, Σx⁴Ĝ, ΣxĜ for every feature simultaneously (the
-#   one-hot(segb) weights land on the MXU);
+#   one-hot(segb) weights make it a plain GEMM);
 # * the update coefficients return to B-space through the same one-hot
 #   (two tiny matmuls), and Ĝ ← T Ĝ Tᵀ is applied as four lane-wise
 #   slab updates.
@@ -456,7 +454,7 @@ def _joint_u_block_pass(b: BlockPlan, e, q, U, alpha, lam_gu, mu_gu,
 
 def _dense_color_step(G, xw, segb, u_old, lam, mu, xi, alpha, D):
     """One dense color: G is the FLAT lanes-major Gram [D·D, B]
-    (flat row k = Ĝ[k//D, k%D]; minor-dim B rides the 128 lanes, so
+    (flat row k = Ĝ[k//D, k%D]; B is the minor dim, so
     the physical footprint has no tile padding on the stats dims).
 
     Each feature belongs to exactly ONE color, so its weight row,
@@ -562,22 +560,63 @@ def _update_gram_lanes(G, a0, A_B, D):
     return G + corr
 
 
+def _chol_solve_sample_lanes(Svv, rhs, xi, eps8, tiny, floor=None):
+    """chol_solve_sample on lists of [B]-lane vectors.
+
+    ``Svv``: list of lists, Svv[i][j] a [B] vector (i, j < Dp);
+    ``rhs``/``xi``: lists of [B] vectors.  Returns the solution list.
+    Identical recurrences and pivot clamp as the scan path; ``floor``
+    is the per-coordinate exact pivot lower bound (the prior λ for
+    A = αS + diag(λ) — see chol_solve_sample)."""
+    Dp = len(rhs)
+    cols = []  # cols[j][i] for i >= j: column j of L
+    for j in range(Dp):
+        col = [Svv[i][j] for i in range(Dp)]
+        for k in range(j):
+            ck = cols[k]
+            col = [
+                col[i] - ck[i - k] * ck[j - k] if i >= j else col[i]
+                for i in range(Dp)
+            ]
+        floor_j = eps8 * jnp.abs(Svv[j][j]) + tiny
+        if floor is not None:
+            floor_j = jnp.maximum(floor_j, floor[j])
+        pivot = jnp.maximum(col[j], floor_j)
+        inv_d = jax.lax.rsqrt(pivot)
+        colj = [pivot * inv_d] + [
+            col[i] * inv_d for i in range(j + 1, Dp)
+        ]
+        cols.append(colj)
+    z = []
+    for j in range(Dp):
+        acc = rhs[j]
+        for k in range(j):
+            acc = acc - cols[k][j - k] * z[k]
+        z.append(acc / cols[j][0])
+    zx = [z[j] + xi[j] for j in range(Dp)]
+    s = [None] * Dp
+    for j in reversed(range(Dp)):
+        acc = zx[j]
+        for k in range(j + 1, Dp):
+            acc = acc - cols[j][k - j] * s[k]
+        s[j] = acc / cols[j][0]
+    return s
+
+
 def _identity_color_apply(dc, G, Atot, Ct, U, alpha, lam_gu, mu_gu,
                           noise, group_index, D):
     """Draw a color's single-entry features straight off the Gram.
 
     Each such feature touches exactly one block row b (one-hot id
     columns in block space), so its (S, t) statistics are that row's
-    Ĝ entries scaled by powers of x — no one-hot projection, no MXU
-    pass: ~50 lane-parallel [B]-vector ops plus the unrolled batched
+    Ĝ entries scaled by powers of x — no one-hot projection, no
+    matmul: ~50 lane-parallel [B]-vector ops plus the unrolled batched
     Cholesky.  Exactness: features of one color are row-disjoint, so
     drawing the identity subset before the color's ragged remainder
     produces bit-for-bit the same draws as the combined one-hot step
     (their Gram/residual updates touch disjoint lanes).
 
     Returns (G, Atot, Ct, U)."""
-    from .pallas_joint_tail import _chol_solve_sample_lanes
-
     R = D - 2
     dtype = G.dtype
     x = dc.id_xw
@@ -656,20 +695,47 @@ def _identity_color_apply(dc, G, Atot, Ct, U, alpha, lam_gu, mu_gu,
     return G, Atot, Ct, U
 
 
+def _dense_color_apply(G, Atot, Ct, xw, segb, u_old, lam, mu, xi, alpha,
+                       D):
+    """One dense color: draw its features, then carry the block-row
+    update into (G, Atot, Ct).  Returns (G, Atot, Ct, u_new)."""
+    u_new, a0, A_B = _dense_color_step(
+        G, xw, segb, u_old, lam, mu, xi, alpha, D
+    )
+    Ct = Ct + a0 + jnp.sum(A_B * Atot, axis=0)
+    Atot = Atot + A_B
+    G = _update_gram_lanes(G, a0, A_B, D)
+    return G, Atot, Ct, u_new
+
+
+def dense_stack_tail(G, Atot, Ct, xw, segb, u0, lam, mu, xi, alpha, D,
+                     unroll=4):
+    """The stacked colour tail of a block: ``_dense_color_apply`` over
+    the C colours of a DenseStack in one ``lax.scan``.
+
+    ``G`` is the flat lanes-major Gram [D·D, B], ``Atot`` [R, B], ``Ct``
+    [B]; ``xw``/``segb`` are [C, B] and ``u0``/``lam``/``mu``/``xi``
+    [C, Pf, R+1] (pre-gathered per colour).  Returns
+    (G, Atot, Ct, u_new [C, Pf, R+1])."""
+    def body(carry, xs):
+        G_, At_, Ct_, u_new = _dense_color_apply(*carry, *xs, alpha, D)
+        return (G_, At_, Ct_), u_new
+
+    (G, Atot, Ct), u_all = lax.scan(
+        body, (G, Atot, Ct), (xw, segb, u0, lam, mu, xi), unroll=unroll,
+    )
+    return G, Atot, Ct, u_all
+
+
 def _joint_u_block_pass_dense(b: BlockPlan, e, q, U, alpha, lam_gu,
                               mu_gu, noise, group_index, axis=None,
-                              unroll=4, pallas_tail=False):
+                              unroll=4):
     """All colors of one block via the dense lanes-major machinery.
 
     Weight rows, priors and noise are pre-gathered per color (features
     partition across colors) so the scan body is gather/scatter-free;
     drawn rows come back through the scan's stacked ys and are written
-    to U with one scatter per stack.
-
-    ``pallas_tail``: run the stacked tail as ONE Pallas kernel with the
-    Gram carry resident in VMEM (ops/pallas_joint_tail.py) instead of a
-    lax.scan — identical math, no per-color dispatch/HBM round-trips.
-    Pass "interpret" to run the kernel in interpret mode (CPU tests)."""
+    to U with one scatter per stack."""
     B = b.block_size
     R = q.shape[1]
     D = R + 2
@@ -683,15 +749,6 @@ def _joint_u_block_pass_dense(b: BlockPlan, e, q, U, alpha, lam_gu,
         gidx = group_index[feat]
         return U[feat], lam_gu[gidx], mu_gu[gidx], noise[feat]
 
-    def step(G, Atot, Ct, xw, segb, u_old, lam, mu, xi):
-        u_new, a0, A_B = _dense_color_step(
-            G, xw, segb, u_old, lam, mu, xi, alpha, D
-        )
-        Ct = Ct + a0 + jnp.sum(A_B * Atot, axis=0)
-        Atot = Atot + A_B
-        G = _update_gram_lanes(G, a0, A_B, D)
-        return G, Atot, Ct, u_new
-
     for dc in b.dense_colors:
         if dc.id_feat is not None:
             G, Atot, Ct, U = _identity_color_apply(
@@ -699,33 +756,18 @@ def _joint_u_block_pass_dense(b: BlockPlan, e, q, U, alpha, lam_gu,
                 group_index, D,
             )
         u_old, lam, mu, xi = pergather(dc.feat)
-        G, Atot, Ct, u_new = step(
-            G, Atot, Ct, dc.xw, dc.segb, u_old, lam, mu, xi
+        G, Atot, Ct, u_new = _dense_color_apply(
+            G, Atot, Ct, dc.xw, dc.segb, u_old, lam, mu, xi, alpha, D
         )
         U = U.at[dc.feat].set(u_new, mode="drop", unique_indices=True)
 
     if b.dense_stack is not None:
         ds = b.dense_stack
         u0, lam_s, mu_s, xi_s = pergather(ds.feat)  # [C, Pf, R+1] each
-
-        if pallas_tail:
-            from .pallas_joint_tail import joint_tail_pass
-
-            G, Atot, Ct, u_all = joint_tail_pass(
-                G, Atot, Ct, ds.xw, ds.segb, u0, lam_s, mu_s, xi_s,
-                alpha, D, interpret=(pallas_tail == "interpret"),
-            )
-        else:
-            def body(carry, xs):
-                G_, At_, Ct_ = carry
-                G_, At_, Ct_, u_new = step(G_, At_, Ct_, *xs)
-                return (G_, At_, Ct_), u_new
-
-            (G, Atot, Ct), u_all = lax.scan(
-                body, (G, Atot, Ct),
-                (ds.xw, ds.segb, u0, lam_s, mu_s, xi_s),
-                unroll=unroll,
-            )
+        G, Atot, Ct, u_all = dense_stack_tail(
+            G, Atot, Ct, ds.xw, ds.segb, u0, lam_s, mu_s, xi_s, alpha, D,
+            unroll=unroll,
+        )
         U = U.at[ds.feat.reshape(-1)].set(
             u_all.reshape(-1, R + 1), mode="drop", unique_indices=True
         )
@@ -737,8 +779,7 @@ def _joint_u_block_pass_dense(b: BlockPlan, e, q, U, alpha, lam_gu,
 
 
 def sweep_joint_u(plan: DesignPlan, e, w, V, alpha, lambda_w, mu_w,
-                  lambda_V, mu_V, key, axis=None, unroll=4, q=None,
-                  pallas_tail=False):
+                  lambda_V, mu_V, key, axis=None, unroll=4, q=None):
     """One merged (w, V) joint pass over all colors of all tables.
 
     Returns (w, V, e, q).  ``q`` (the factor-sum cache) is maintained
@@ -781,7 +822,7 @@ def sweep_joint_u(plan: DesignPlan, e, w, V, alpha, lambda_w, mu_w,
         if b.dense_colors or b.dense_stack is not None:
             e, q, U = _joint_u_block_pass_dense(
                 b, e, q, U, alpha, lam_gu, mu_gu, noise, g, axis,
-                unroll=unroll, pallas_tail=pallas_tail,
+                unroll=unroll,
             )
         else:
             e, q, U = _joint_u_block_pass(

@@ -1,4 +1,4 @@
-"""Ordered-probit cutpoint sampler: Metropolis-within-Gibbs on TPU.
+"""Ordered-probit cutpoint sampler: Metropolis-within-Gibbs on the device.
 
 Re-implementation of the reference's ``OprobitSampler``
 (/root/reference/include/myfm/OProbitSampler.hpp): cutpoints γ are
@@ -7,7 +7,7 @@ penalized ordinal-probit log-likelihood is maximized by a damped Newton
 iteration, and a multivariate-t proposal centred at the mode (precision
 = Hessian, ν = nu_oprobit) drives a Metropolis-Hastings accept/reject.
 
-Two deliberate TPU-first departures from the C++:
+Two deliberate departures from the C++:
 
 * The gradient and Hessian of the penalized likelihood are obtained by
   automatic differentiation of a numerically stable log-interval
@@ -213,7 +213,8 @@ def _sample_mvt(key, H, nu: float, dtype):
 def _log_p_mvt(H, mu, nu: float, x):
     """Unnormalized mvt log-density (OProbitSampler.hpp:51-55)."""
     d = x - mu
-    q = d @ (H @ d)
+    hi = lax.Precision.HIGHEST
+    q = jnp.dot(d, jnp.dot(H, d, precision=hi), precision=hi)
     return jnp.log1p(q / nu) * (-nu - H.shape[0]) / 2.0
 
 
@@ -286,7 +287,7 @@ def _init_cutpoints_from_score(score, y, key, n_class, reg,
 # The C++ engine supports several independent cutpoint samplers, one per
 # CutpointGroupType entry (FMLearningConfig.hpp:15, OProbitSampler.hpp
 # instantiated per group in FMTrainer.hpp:99-119) — e.g. two ordinal
-# questionnaires with different scales sharing one FM.  The TPU layout
+# questionnaires with different scales sharing one FM.  The layout here
 # encodes the group INTO the integer target: group g's classes occupy
 # the offset range [Σ_{j<g} K_j, Σ_{j<g} K_j + K_g), so no per-row group
 # array has to be threaded through the sweeps — membership is recovered

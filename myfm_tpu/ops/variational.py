@@ -1,6 +1,6 @@
 """Coordinate-ascent variational inference (CAVI) for Bayesian FMs.
 
-TPU re-derivation of the reference variational engine
+JAX re-derivation of the reference variational engine
 (/root/reference/include/myfm/variational.hpp:147-915): the same
 mean-field updates — posterior-mean assignments with variance
 bookkeeping — executed through the chromatic color machinery of the
@@ -55,10 +55,6 @@ class VariationalConfig:
     axis_name: Optional[str] = None
     n_devices: int = 1
     gram_reduce_scatter: bool = True
-    # fast-path Gram matmul (mirrors GibbsConfig.gram_fast_matmul):
-    # None = auto-enable the 3-pass bf16-split for f32 on the real TPU
-    # after the on-device self-check; True/False force it.
-    gram_fast_matmul: Optional[bool] = None
 
 
 @dataclasses.dataclass
@@ -553,11 +549,7 @@ def _vi_V_color_block(b: BlockPlan, c: ColorPlan, carry, alpha, lam_col,
 
 
 def vi_V_factor(plan: DesignPlan, e, v_col, s_col, alpha, lam_r, mu_r):
-    """One factor of the CAVI V sweep: (e, v_col, s_col) → updated.
-
-    Exposed standalone so the trainer's staged mode can run each factor
-    as its own dispatch on very large designs (a fused rank-R sweep is
-    one device program whose runtime grows with rank × n_rows)."""
+    """One factor of the CAVI V sweep: (e, v_col, s_col) → updated."""
     g = plan.group_index
     q = _row_cache(plan, lambda x, col: x * v_col[col])
     x2s = _row_cache(plan, lambda x, col: x * x * s_col[col])
@@ -617,8 +609,7 @@ def vi_e_var_linear(plan: DesignPlan, w0, w0_var, w, w_var):
 
 def vi_e_var_factor(plan: DesignPlan, e, e_var_sum, v, s):
     """One factor's contribution to the residual/variance refresh
-    (variational.hpp:715-833); standalone for the trainer's staged
-    per-factor dispatch mode."""
+    (variational.hpp:715-833)."""
     q = _row_cache(plan, lambda x, col: x * v[col])
     q_s = _row_cache(plan, lambda x, col: x * x * v[col] * v[col])
     x2s = _row_cache(plan, lambda x, col: x * x * s[col])
@@ -738,8 +729,7 @@ def vi_finish_e(plan: DesignPlan, state: VIState, e, e_var_sum, y,
 def vi_sweep_stage_a(plan: DesignPlan, state: VIState,
                      cfg: VariationalConfig) -> VIState:
     """Hyperparameter + linear stages of the CAVI iteration (everything
-    before the factor sweep); standalone for the trainer's staged
-    dispatch mode on very large designs."""
+    before the factor sweep)."""
     dtype = state.e.dtype
     n = plan.n_rows
 

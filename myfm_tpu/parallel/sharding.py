@@ -332,7 +332,6 @@ class ShardedGibbsTrainer:
             joint_rank=rank,
         )
         from ..design import joint_auto_eligible
-        from ..trainer import _resolve_joint_pallas_tail
 
         if joint_auto and not cfg.joint_rows and joint_auto_eligible(
             self.plan, rank, self.dtype
@@ -341,8 +340,7 @@ class ShardedGibbsTrainer:
             # identical gates, so sharded == single-chip engine choice
             cfg = dataclasses.replace(cfg, joint_rows=True)
         self.cfg = dataclasses.replace(
-            _resolve_joint_pallas_tail(cfg, self.dtype, self.plan, rank),
-            axis_name="data", n_devices=n_devices,
+            cfg, axis_name="data", n_devices=n_devices,
         )
         n_pad = mask.shape[0]
         y_pad = np.zeros(n_pad, dtype=self.dtype)

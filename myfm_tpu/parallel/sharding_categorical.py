@@ -8,7 +8,7 @@ replicated.  Per table, each device computes partial per-entity Gram
 matrices over its rows; one ``psum`` per table turns them into the
 global statistics, after which every device performs the identical
 entity-space draws — zero weight traffic, one [B, D, D] all-reduce per
-table per sweep riding ICI.
+table per sweep.
 
 The sharded chain equals the single-chip chain up to float
 reassociation of the Gram partials (asserted with tight tolerances in
@@ -37,7 +37,7 @@ except ImportError:  # pragma: no cover
 from ..design_categorical import (
     CategoricalPlan,
     CategoricalTable,
-    choose_tiling_probed,
+    choose_tiling,
     compile_categorical_table,
     compile_side_info,
     extract_categorical_mappings,
@@ -49,6 +49,7 @@ from ..ops.categorical import (
     make_y_tiles,
 )
 from ..ops.gibbs import GibbsConfig, GibbsState, init_state
+from ..ops.gram import choose_impl
 
 
 def compile_sharded_categorical(
@@ -100,17 +101,12 @@ def compile_sharded_categorical(
 
     n_local = -(-n_rows // n_devices)
 
-    # one (T, S) per table, chosen from global cardinalities and
-    # compile-probed on the live backend so every shard agrees on a
-    # tiling that Mosaic accepts
-    tilings = []
-    for ent, B, _ in mappings:
-        chosen = choose_tiling_probed(
-            np.bincount(ent, minlength=B), 1024, 8, rank
-        )
-        if chosen is None:
-            return None
-        tilings.append(chosen[:2])
+    # one (T, S) per table, chosen from global cardinalities so every
+    # shard agrees on it
+    tilings = [
+        choose_tiling(np.bincount(ent, minlength=B), rank)[:2]
+        for ent, B, _ in mappings
+    ]
 
     # compile per device with masked row padding
     dev_tables = []  # [n_dev][n_tables]
@@ -128,14 +124,13 @@ def compile_sharded_categorical(
             )
         dev_tables.append(tabs)
 
-    # reconcile static shapes across devices: tile counts and
-    # finalize-window widths must match for shard_map
+    # reconcile static shapes across devices: tile counts must match
+    # for shard_map
     for ti in range(len(mappings)):
         k_max = max(dev_tables[d][ti].n_tiles for d in range(n_devices))
-        f_max = max(dev_tables[d][ti].max_fin for d in range(n_devices))
         for d in range(n_devices):
             t = dev_tables[d][ti]
-            if t.n_tiles < k_max or t.max_fin < f_max:
+            if t.n_tiles < k_max:
                 (ent, B, off), (T, S) = mappings[ti], tilings[ti]
                 lo, hi = d * n_local, min((d + 1) * n_local, n_rows)
                 ent_d = np.full(n_local, B, dtype=np.int64)
@@ -143,7 +138,6 @@ def compile_sharded_categorical(
                 dev_tables[d][ti] = compile_categorical_table(
                     ent_d, B, off, n_local, dtype, rank=rank,
                     fixed_ts=(T, S), pad_tiles_to=k_max,
-                    max_fin_pad=f_max,
                 )
 
     # per-device cross maps, then stack everything on a device axis
@@ -230,11 +224,8 @@ class ShardedCategoricalGibbsTrainer:
                 "Design is not all-categorical; use ShardedGibbsTrainer."
             )
         self.plan, n_local = compiled
-        from ..trainer import _resolve_gram_fast_matmul
-
         self.cfg = dataclasses.replace(
-            _resolve_gram_fast_matmul(cfg, self.dtype, rank),
-            axis_name="data", n_devices=n_devices,
+            cfg, axis_name="data", n_devices=n_devices,
         )
         y_pad = np.zeros(n_local * n_devices, dtype=self.dtype)
         y_arr = np.asarray(y).astype(self.dtype)
@@ -277,12 +268,14 @@ class ShardedCategoricalGibbsTrainer:
             sum_e2=P(),
         )
         cfg_static = self.cfg
-        interpret = jax.default_backend() != "tpu"
-        self._interpret = interpret
+        gram_impl = choose_impl(
+            self.dtype, rank, platform=self.mesh.devices.flat[0].platform
+        )
+        self._gram_impl = gram_impl
 
         def sweep(plan, state, y, y_tiles, key):
             return categorical_sweep(
-                plan, state, y, y_tiles, key, cfg_static, interpret
+                plan, state, y, y_tiles, key, cfg_static, gram_impl
             )
 
         def init(plan, y, key):
@@ -425,11 +418,8 @@ class ShardedCategoricalVITrainer:
                 "all-categorical or entity+attribute design."
             )
         self.plan, n_local = compiled
-        from ..trainer import _resolve_gram_fast_matmul
-
         self.cfg = dataclasses.replace(
-            _resolve_gram_fast_matmul(cfg, self.dtype),
-            axis_name="data", n_devices=n_devices,
+            cfg, axis_name="data", n_devices=n_devices,
         )
         y_pad = np.zeros(n_local * n_devices, dtype=self.dtype)
         y_arr = np.asarray(y).astype(self.dtype)
@@ -458,12 +448,15 @@ class ShardedCategoricalVITrainer:
             tau=(P("data") if is_classification else None),
         )
         cfg_static = self.cfg
-        interpret = jax.default_backend() != "tpu"
-        self._interpret = interpret
+        gram_impl = choose_impl(
+            self.dtype, rank, n_body=4,
+            platform=self.mesh.devices.flat[0].platform,
+        )
+        self._gram_impl = gram_impl
 
         def sweep(plan, state, y, y_tiles):
             return categorical_vi_sweep(
-                plan, state, y, y_tiles, cfg_static, interpret
+                plan, state, y, y_tiles, cfg_static, gram_impl
             )
 
         def init(plan, y, key):
@@ -511,9 +504,9 @@ class ShardedCategoricalVITrainer:
         key = jax.random.PRNGKey(self.random_seed)
         return self._init_sharded(self.plan, self.y, key)
 
-    def _sweep(self, plan, state, y, y_tiles, cfg, interpret):
+    def _sweep(self, plan, state, y, y_tiles, cfg, gram_impl):
         # seam-compatible with CategoricalVITrainer._sweep (cfg /
-        # interpret are baked into the shard_map closure)
+        # gram_impl are baked into the shard_map closure)
         return self._sweep_sharded(plan, state, y, y_tiles)
 
     def run(self, n_iter: int, callback=None):

@@ -1,6 +1,6 @@
 """Posterior-predictive averaging over kept Gibbs samples.
 
-TPU-native analogue of the reference ``Predictor``
+Device analogue of the reference ``Predictor``
 (/root/reference/include/myfm/predictor.hpp:14-167).  Where the
 reference spreads samples over a std::thread pool, here the sample axis
 is batched on-device: samples are stacked in memory-bounded chunks and

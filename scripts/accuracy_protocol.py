@@ -1,4 +1,4 @@
-"""Fixed-seed accuracy-parity protocol (VERDICT round-1 item 5).
+"""Fixed-seed accuracy-parity protocol.
 
 Runs the reference's committed benchmark configurations end-to-end and
 writes ACCURACY.md: RMSE/MAE (and oprobit expected-rating RMSE) beside
@@ -230,15 +230,12 @@ def main():
         "only when this script runs with `--real` and the zips cached.",
         "Regenerate: `python scripts/accuracy_protocol.py`.",
         "",
-        "| config | RMSE | MAE | reference RMSE (real data) | fit wall"
-        " | engine | first iter (compile) | steady it/s |",
-        "|---|---|---|---|---|---|---|---|",
+        "| config | RMSE | MAE | reference RMSE (real data) | engine |",
+        "|---|---|---|---|---|",
     ]
-    for name, r, m, ref, wall, eng, t_first, it_s in rows:
-        lines.append(
-            f"| {name} | {r:.5f} | {m:.5f} | {ref} | {wall:.0f}s "
-            f"| {eng} | {t_first:.0f}s | {it_s:.1f} |"
-        )
+    # times are left out: they belong in PERF.md with the card's name
+    for name, r, m, ref, _wall, eng, _t_first, _it_s in rows:
+        lines.append(f"| {name} | {r:.5f} | {m:.5f} | {ref} | {eng} |")
     if real_rows:
         lines += [
             "",
@@ -248,13 +245,11 @@ def main():
             "reference recipe and",
             "value: doc/source/index.rst:28-51):",
             "",
-            "| config | AUC | reference AUC | fit wall |",
-            "|---|---|---|---|",
+            "| config | AUC | reference AUC |",
+            "|---|---|---|",
         ]
-        for name, auc, ref, wall in real_rows:
-            lines.append(
-                f"| {name} | {auc:.5f} | {ref} | {wall:.0f}s |"
-            )
+        for name, auc, ref, _wall in real_rows:
+            lines.append(f"| {name} | {auc:.5f} | {ref} |")
     lines.append("")
     with open(args.out, "w") as f:
         f.write("\n".join(lines))

@@ -1,8 +1,8 @@
 """Tests for the categorical entity-space fast path.
 
 Layers (mirroring the reference's test strategy, SURVEY §4):
-1. kernel unit: Pallas tile-Gram (interpret mode) == einsum oracle ==
-   brute-force numpy per-entity Grams, across split/pad patterns;
+1. Gram unit: the plain path and the Triton kernel (interpret mode)
+   == brute-force numpy per-entity Grams, across split/pad patterns;
 2. table-pass unit: one `_table_pass` == an independent numpy
    re-implementation of the entity-space update rules, exactly (same
    noise);
@@ -31,47 +31,94 @@ from myfm_tpu.ops.categorical import (
     init_categorical_state,
 )
 from myfm_tpu.ops.gibbs import GibbsConfig, init_state
-from myfm_tpu.ops.pallas_gram import entity_grams
+from myfm_tpu.ops.gram import (
+    table_gram,
+    tile_grams_kernel,
+    tile_grams_reference,
+)
 
 from .oracle import expand_blocks
 
 
-def _tile_rows(tab, z):
-    D = z.shape[1]
-    zpad = np.concatenate([z, np.zeros((1, D), z.dtype)])
-    src = np.minimum(np.asarray(tab.src), z.shape[0])
-    return jnp.asarray(
-        zpad[src].reshape(tab.n_tiles, tab.tile_rows, D)
-    )
+def _gram_problem(rng, N, B, others, rank, n_body=1, dtype=np.float64):
+    """Entity maps and [lin | body | qs] source rows of one table pass:
+    own table of B entities, other tables of the given sizes."""
+    ent = rng.randint(0, B, N)
+    ent[ent == 7] = 8  # an entity with zero rows
+    ents2 = [rng.randint(0, b, N) for b in others]
+
+    def source(b, nb):
+        out = np.zeros((b + 1, 2 + nb * rank), dtype)
+        out[:b, :-1] = rng.normal(size=(b, 1 + nb * rank)) * 0.5
+        out[:b, -1] = (out[:b, 1 : 1 + rank] ** 2).sum(1) + 0.1
+        return out
+
+    return (ent, ents2, source(B, 1), [source(b, n_body) for b in others],
+            rng.normal(size=N).astype(dtype))
+
+
+def _numpy_grams(ent, ents2, own_src, srcs, tau, B, rank):
+    """Brute force: per row z = [1 | e | Σ_other body], G_u = Σ z zᵀ
+    over the rows of u (rows restricted to [1 | e | φ])."""
+    own = own_src[ent].astype(np.float64)
+    gs = [s_[e2].astype(np.float64) for s_, e2 in zip(srcs, ents2)]
+    Z = sum(g[:, 1:-1] for g in gs)
+    lin = own[:, 0] + sum(g[:, 0] for g in gs)
+    qs = own[:, -1] + sum(g[:, -1] for g in gs)
+    qf = Z[:, :rank] + own[:, 1 : 1 + rank]
+    e = lin - tau + 0.5 * ((qf * qf).sum(1) - qs)
+    z = np.concatenate([np.ones((len(e), 1)), e[:, None], Z], axis=1)
+    G = np.zeros((B, 2 + rank, z.shape[1]))
+    for u in range(B):
+        zu = z[ent == u]
+        G[u] = zu[:, : 2 + rank].T @ zu
+    return G
+
+
+def _table_gram_of(tab, ent2s, own_src, srcs, tau, rank, impl,
+                   chunk_tiles):
+    N = tab.ent_main.shape[0]
+    src = np.asarray(tab.src)
+    row = np.minimum(src, N - 1)
+    tau_t = np.where(src < N, tau[row], 0.0)
+    idx2 = [np.where(src < N, e2[row], s_.shape[0] - 1)
+            for e2, s_ in zip(ent2s, srcs)]
+    return np.asarray(table_gram(
+        jnp.asarray(own_src), tab.ent_of_tile_row,
+        [jnp.asarray(s_) for s_ in srcs], [jnp.asarray(i) for i in idx2],
+        jnp.asarray(tau_t), tab.slot, tab.seg, tab.ent_slots,
+        rank=rank, n_entities=tab.n_cols, tile_rows=tab.tile_rows,
+        tile_entities=tab.tile_entities, chunk_tiles=chunk_tiles,
+        impl=impl,
+    ))
 
 
 @pytest.mark.parametrize("T,S", [(16, 2), (64, 8), (1024, 8)])
 @pytest.mark.parametrize("seed", [0, 3])
 def test_entity_grams_vs_numpy(T, S, seed):
+    """Both Gram implementations == brute-force numpy per-entity Grams,
+    with entities split across tiles and tiles split across chunks."""
     rng = np.random.RandomState(seed)
-    N, B, D = 700, 29, 5
-    ent = rng.randint(0, B, N)
-    ent[ent == 7] = 8  # an entity with zero rows
-    tab = compile_categorical_table(ent, B, 0, N, np.float32, T=T, S=S)
-    z = rng.normal(size=(N, D)).astype(np.float32)
-    rows_t = _tile_rows(tab, z)
-    for use_pallas in (False, True):
-        G = np.asarray(
-            entity_grams(
-                tab, rows_t, tab.tile_entities, D,
-                interpret=True, use_pallas=use_pallas,
-            )
-        )
-        for u in range(B):
-            rows = z[ent == u].astype(np.float64)
-            ref = rows.T @ rows if len(rows) else np.zeros((D, D))
+    N, B, rank = 700, 29, 3
+    ent, ents2, own_src, srcs, tau = _gram_problem(
+        rng, N, B, (11, 6), rank
+    )
+    tab = compile_categorical_table(
+        ent, B, 0, N, np.float64, fixed_ts=(T, S)
+    )
+    want = _numpy_grams(ent, ents2, own_src, srcs, tau, B, rank)
+    for impl in ("xla", "interpret"):
+        for chunk_tiles in (tab.chunk_tiles, 2):
+            G = _table_gram_of(tab, ents2, own_src, srcs, tau, rank,
+                               impl, chunk_tiles)
             np.testing.assert_allclose(
-                G[u], ref, rtol=2e-4, atol=2e-4,
-                err_msg=f"entity {u} pallas={use_pallas}",
+                G, want, rtol=1e-9, atol=1e-9,
+                err_msg=f"impl={impl} chunk_tiles={chunk_tiles}",
             )
 
 
-def test_table_pass_matches_numpy_oracle():
+@pytest.mark.parametrize("gram_impl", ["xla", "interpret"])
+def test_table_pass_matches_numpy_oracle(gram_impl):
     """_table_pass == independent numpy implementation, exactly.
 
     Two one-hot tables; the oracle reconstructs e from the weights
@@ -90,7 +137,7 @@ def test_table_pass_matches_numpy_oracle():
     grouping = np.asarray([0] * B1 + [1] * B2, np.int32)
     plan = try_compile_categorical(
         sps.hstack([X1, X2]).tocsr(), [], grouping, None, np.float64,
-        T=32, S=4, rank=R,
+        fixed_ts=(32, 4), rank=R,
     )
     assert plan is not None and len(plan.tables) == 2
     F = B1 + B2
@@ -116,7 +163,7 @@ def test_table_pass_matches_numpy_oracle():
         w_j, V_j, moments = _table_pass(
             plan, ti, w_j, V_j, w0, alpha, lambda_w, mu_w, lambda_V,
             mu_V, plan.group_index, noise_w, noise_V, tau_tiles[ti],
-            cfg, True, want_moments=(ti == 1),
+            cfg, gram_impl, want_moments=(ti == 1),
         )
     w2, V2 = np.asarray(w_j), np.asarray(V_j)
 
@@ -216,7 +263,7 @@ def test_sweep_residual_invariant():
     for it in range(3):
         state = categorical_sweep(
             plan, state, yj, y_tiles, jax.random.fold_in(key, it),
-            cfg, interpret=True,
+            cfg, gram_impl="interpret",
         )
     score, _ = score_and_q(
         plan, state.core.w0, state.core.w, state.core.V
@@ -338,291 +385,187 @@ def test_block_with_categorical_side_attributes_fast_path():
     assert float(np.sqrt(np.mean((pred - y) ** 2))) < 0.5
 
 
+def _chunk_problem(rng, K, T, S, R, n_body, dtype=np.float64):
+    """One chunk of tiles: sorted slots with pad rows at each tile's
+    end and one empty slot, seg table, and source rows."""
+    slot = np.sort(rng.randint(0, S - 1, size=(K, T)), axis=1)
+    slot[:, -3:] = S  # pad rows
+    slot[slot == 1] = 0  # slot 1 owns no rows
+    seg = np.zeros((K, S, 2), np.int32)
+    for k in range(K):
+        for s_ in range(S):
+            r = np.nonzero(slot[k] == s_)[0]
+            seg[k, s_] = (r[0] if len(r) else 0, len(r))
+    sizes = (9, 7, 5)
+    own = np.concatenate(
+        [rng.normal(size=(sizes[0], 2 + R)), np.zeros((1, 2 + R))]
+    ).astype(dtype)
+    srcs = [
+        np.concatenate([rng.normal(size=(b, 2 + n_body * R)),
+                        np.zeros((1, 2 + n_body * R))]).astype(dtype)
+        for b in sizes[1:]
+    ]
+    valid = slot < S
+    own_idx = np.where(valid, rng.randint(0, sizes[0], (K, T)), sizes[0])
+    idx = [np.where(valid, rng.randint(0, b, (K, T)), b)
+           for b in sizes[1:]]
+    tau = (rng.normal(size=(K, T)) * valid).astype(dtype)
+    return [jnp.asarray(a) for a in (own, own_idx)], \
+        [jnp.asarray(a) for a in srcs], [jnp.asarray(a) for a in idx], \
+        jnp.asarray(tau), jnp.asarray(slot.astype(np.int32)), \
+        jnp.asarray(seg)
+
+
 def test_fused_gram_extra_columns_vs_oracle():
-    """q_other may carry extra trailing z-columns (the entity-space VI
-    variance sums ride the same Gram); kernel == jnp oracle, and the
-    leading [1|e|phi] block must be unchanged by the extension."""
-    import jax.numpy as jnp
-
-    from myfm_tpu.ops.pallas_gram import (
-        fused_tile_gram,
-        fused_tile_gram_reference,
-    )
-
+    """Extra z-columns (the CAVI [φ | σ | τ] layout, three body blocks)
+    ride the same Gram: kernel == plain path, and the leading
+    [1|e|φ] block equals the one-block Gram of the same rows."""
     rng = np.random.RandomState(7)
-    K, T, S, R, X = 3, 16, 4, 3, 2
-    meta = rng.normal(size=(K, T, 3))
-    meta[:, :, 0] = (rng.random((K, T)) > 0.2).astype(float)  # ones
-    q_ext = rng.normal(size=(K, T, R + X))
-    slot = rng.randint(0, S, size=(K, T)).astype(np.int32)
-    wvsl = rng.normal(size=(K, S, 1 + R))
-    cont = np.zeros(K, dtype=np.int32)
-    last = np.zeros(K, dtype=np.int32)
-
-    args = lambda q: (
-        jnp.asarray(meta), jnp.asarray(q), jnp.asarray(slot),
-        jnp.asarray(wvsl), jnp.asarray(cont), jnp.asarray(cont),
-        jnp.asarray(last), S,
+    K, T, S, R = 3, 32, 4, 3
+    (own, oidx), srcs, idx, tau, slot, seg = _chunk_problem(
+        rng, K, T, S, R, n_body=3
     )
-    out_ext, carry_ext = fused_tile_gram(*args(q_ext), interpret=True)
-    ref_ext, ref_carry = fused_tile_gram_reference(*args(q_ext))
-    D = R + X + 2
-    np.testing.assert_allclose(
-        np.asarray(out_ext)[:, :D, :],
-        np.asarray(ref_ext).reshape(K * S, D, D),
-        rtol=1e-10, atol=1e-10,
+    ref = tile_grams_reference(own, oidx, srcs, idx, tau, slot, S, R)
+    got = tile_grams_kernel(own, oidx, srcs, idx, tau, seg, S, R,
+                            interpret=True)
+    assert ref.shape == (K, S, 2 + R, 2 + 3 * R)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                               rtol=1e-10, atol=1e-10)
+    base = tile_grams_reference(
+        own, oidx, [s_[:, list(range(1 + R)) + [-1]] for s_ in srcs],
+        idx, tau, slot, S, R,
     )
     np.testing.assert_allclose(
-        np.asarray(carry_ext), np.asarray(ref_carry), rtol=1e-10,
-        atol=1e-10,
+        np.asarray(ref)[..., : 2 + R], np.asarray(base), rtol=1e-12
     )
-
-    # the [1|e|phi] block is identical with and without extra columns
-    out_base, _ = fused_tile_gram(
-        *args(q_ext[:, :, :R]), interpret=True
-    )
-    Db = R + 2
-    np.testing.assert_allclose(
-        np.asarray(out_ext)[:, :Db, :Db],
-        np.asarray(out_base)[:, :Db, :Db],
-        rtol=1e-12,
-    )
-
-
-def test_choose_tiling_cost_model():
-    """Dense tables (rows-per-entity >> T) must get a small S — the
-    Gram kernel's MXU cost per row scales with ceil(S*Dp/128) — while
-    scattered tables keep pad inflation bounded, and every choice
-    respects the kernel's REAL modeled VMEM footprint."""
-    from myfm_tpu.design_categorical import (
-        choose_tiling,
-        rank_tilings,
-        _packed_rows,
-    )
-    from myfm_tpu.ops.pallas_gram import (
-        GRAM_VMEM_BUDGET,
-        fused_gram_vmem_bytes,
-    )
-
-    # items-like: ~930 rows per entity
-    counts = np.full(10_000, 930, dtype=np.int64)
-    T, S, infl = choose_tiling(counts, 1024, 8, rank=32)
-    assert S <= 2, (T, S, infl)
-    assert infl <= 1.3
-    assert fused_gram_vmem_bytes(T, S, 32) <= GRAM_VMEM_BUDGET
-
-    # scattered: one row per entity — S must grow to keep inflation
-    # sane, and the returned inflation matches the packing exactly
-    counts1 = np.ones(50_000, dtype=np.int64)
-    T1, S1, infl1 = choose_tiling(counts1, 1024, 8, rank=32)
-    assert S1 >= 16, (T1, S1, infl1)
-    assert infl1 == _packed_rows(counts1, T1, S1) / 50_000
-    assert fused_gram_vmem_bytes(T1, S1, 32) <= GRAM_VMEM_BUDGET
-
-    # mixed heavy-tail: never worse than the old default on the model,
-    # and the packing stays exact for whatever was chosen
-    rng = np.random.RandomState(3)
-    counts2 = (rng.pareto(1.2, 5_000) * 50 + 1).astype(np.int64)
-    T2, S2, infl2 = choose_tiling(counts2, 1024, 8, rank=32)
-    n2 = counts2.sum()
-    assert infl2 == _packed_rows(counts2, T2, S2) / n2
-
-
-def test_tiling_vmem_model_rejects_bench_r02_crash_config():
-    """Regression for the BENCH_r02 scoped-VMEM OOM: the date table
-    (B=1095, ~9.1k rows/entity) was given T=4096/S=2 whose true
-    footprint — with Mosaic's 128-lane padding of the narrow [T, 1] /
-    [T, 3] / [T, R] operands and double-buffered blocks — measured
-    16.04 MiB against the 16 MiB scoped limit.  The footprint model
-    must flag that config, and no ranked candidate may exceed the
-    budget at any supported rank."""
-    from myfm_tpu.design_categorical import rank_tilings
-    from myfm_tpu.ops.pallas_gram import (
-        GRAM_VMEM_BUDGET,
-        fused_gram_vmem_bytes,
-    )
-
-    assert fused_gram_vmem_bytes(4096, 2, 32) > GRAM_VMEM_BUDGET
-    # and well within reach of the hardware 16 MiB limit (the model
-    # must not explain the crash by wild over-estimation)
-    assert fused_gram_vmem_bytes(4096, 2, 32) < (17 << 20)
-
-    rng = np.random.RandomState(0)
-    counts = rng.multinomial(10_000_054, np.ones(1095) / 1095)
-    for rank in (8, 32, 96, 128):
-        ranked = rank_tilings(counts, 1024, 8, rank=rank)
-        assert ranked, rank
-        for T, S, _ in ranked:
-            assert (
-                fused_gram_vmem_bytes(T, S, rank) <= GRAM_VMEM_BUDGET
-            ), (rank, T, S)
-        assert (4096, 2) not in {(T, S) for T, S, _ in ranked}
 
 
 def test_fused_gram_cross_vs_separate_meta():
-    """The cross-absorbing kernel (raw cross gathers + packed aux in,
-    VPU sums in VMEM) must agree exactly with the separate-meta kernel
-    fed the pre-summed operands, carries included."""
-    import jax.numpy as jnp
-
-    from myfm_tpu.ops.pallas_gram import (
-        fused_tile_gram,
-        fused_tile_gram_cross,
-        fused_tile_gram_cross_reference,
-    )
-
+    """The kernel (gathers and z built per row segment) and the plain
+    path (gathers, z, then one slot-masked einsum) agree on every
+    (tile, slot) partial, pad rows and row-less slots included."""
     rng = np.random.RandomState(11)
-    K, T, S, R = 3, 16, 4, 3
-    # pad rows (slot == S) sit at the end of each tile, as in the real
-    # packing; the kernel derives validity from slot alone
-    slot = np.sort(rng.randint(0, S, size=(K, T)), axis=1).astype(
-        np.int32
+    K, T, S, R = 3, 64, 4, 5
+    (own, oidx), srcs, idx, tau, slot, seg = _chunk_problem(
+        rng, K, T, S, R, n_body=1
     )
-    slot[:, -3:] = S  # a few pad rows per tile
-    ones = (slot < S).astype(float)
-    tau = rng.normal(size=(K, T)) * ones
-    # per-cross extra qs mass beyond Σ V² (the EA-table case, where the
-    # gathered qs column is the true Σ x²V² > Σ Ṽ²)
-    ds = [np.abs(rng.normal(size=(K, T))) * ones for _ in range(2)]
-    gths = []
-    for c in range(2):
-        core = rng.normal(size=(K, T, 1 + R)) * ones[:, :, None]
-        qs = (core[:, :, 1:] ** 2).sum(axis=2) + ds[c]
-        gths.append(np.concatenate([core, qs[:, :, None]], axis=2))
-    wv_core = rng.normal(size=(K, S, 1 + R))
-    # own qs column must equal Σ V² for the separate-meta comparison
-    # below (the meta kernel recomputes the own squared sum itself)
-    wvsl = np.concatenate(
-        [wv_core, (wv_core[:, :, 1:] ** 2).sum(axis=2)[:, :, None]],
-        axis=2,
+    ref = np.asarray(
+        tile_grams_reference(own, oidx, srcs, idx, tau, slot, S, R)
     )
-    cont_in = np.array([0, 1, 1], dtype=np.int32)
-    cont_out = np.array([1, 1, 0], dtype=np.int32)
-    last = np.full(K, S - 1, dtype=np.int32)
-    carry0 = rng.normal(size=(R + 2, R + 2))
-
-    aux2 = np.stack([slot.astype(float), tau], axis=1)
-    out_c, carry_c = fused_tile_gram_cross(
-        jnp.asarray(aux2),
-        tuple(jnp.asarray(g) for g in gths),
-        jnp.asarray(wvsl), jnp.asarray(cont_in),
-        jnp.asarray(cont_out), jnp.asarray(last), S=S,
-        carry_in=jnp.asarray(carry0), interpret=True,
+    got = np.asarray(
+        tile_grams_kernel(own, oidx, srcs, idx, tau, seg, S, R,
+                          interpret=True)
     )
-    ref_c, ref_carry = fused_tile_gram_cross_reference(
-        jnp.asarray(aux2),
-        tuple(jnp.asarray(g) for g in gths),
-        jnp.asarray(wvsl), jnp.asarray(cont_in),
-        jnp.asarray(cont_out), jnp.asarray(last), S,
-        carry_in=jnp.asarray(carry0),
-    )
-    D = R + 2
-    np.testing.assert_allclose(
-        np.asarray(out_c)[:, :D, :], np.asarray(ref_c),
-        rtol=1e-10, atol=1e-10,
-    )
-    np.testing.assert_allclose(
-        np.asarray(carry_c), np.asarray(ref_carry), rtol=1e-10,
-        atol=1e-10,
-    )
-
-    # equivalence with the separate-meta kernel on pre-summed operands
-    # (meta layout: [1+R]-wide own rows, qs recomputed from V; the
-    # cross kernel excludes w0 by contract, so meta lin0 = lin − τ)
-    lin_o = sum(g[:, :, 0] for g in gths)
-    Q_o = sum(g[:, :, 1 : 1 + R] for g in gths)
-    qs_o = sum(g[:, :, 1 + R] for g in gths)
-    meta = np.stack([ones, lin_o - tau, qs_o], axis=2)
-    out_m, carry_m = fused_tile_gram(
-        jnp.asarray(meta), jnp.asarray(Q_o), jnp.asarray(slot),
-        jnp.asarray(wv_core), jnp.asarray(cont_in),
-        jnp.asarray(cont_out), jnp.asarray(last), S=S,
-        carry_in=jnp.asarray(carry0), interpret=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_c), np.asarray(out_m), rtol=1e-10, atol=1e-10
-    )
-    np.testing.assert_allclose(
-        np.asarray(carry_c), np.asarray(carry_m), rtol=1e-10,
-        atol=1e-10,
-    )
+    np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-10)
+    assert np.all(ref[:, 1] == 0)  # slot 1 owns no rows
+    # card = rows per (tile, slot)
+    np.testing.assert_array_equal(ref[:, :, 0, 0], np.asarray(seg)[..., 1])
 
 
-def test_gram_bf16_mode_error_bound_and_recovery():
-    """The single-pass bf16 Gram mode (auto at rank >= 64 on TPU) must
-    stay within its ~4e-3 theoretical relative error at kernel level,
-    and a forced-bf16 fast-path chain must still recover a planted
-    one-hot signal (the draw noise dominates the matmul error)."""
-    import jax.numpy as jnp
-    import scipy.sparse as sps
+def test_tiling_rule_dense_and_scattered_tables():
+    """Dense tables (rows per entity >> T) get one entity per tile and
+    the largest tiles; scattered tables (one row per entity) pack many
+    entities per tile; the returned inflation is the exact packing."""
+    from myfm_tpu.design_categorical import _packed_rows, choose_tiling
 
-    from myfm_tpu.ops.pallas_gram import fused_tile_gram
+    counts = np.full(2_000, 930, dtype=np.int64)  # items-like
+    T, S, infl = choose_tiling(counts, 32)
+    assert S == 1 and T >= 256, (T, S)
+    assert infl <= 1.3
 
-    rng = np.random.RandomState(5)
-    K, T, S, R = 2, 32, 4, 6
-    meta = rng.normal(size=(K, T, 3)).astype(np.float32)
-    meta[:, :, 0] = 1.0
-    q = (rng.normal(size=(K, T, R)) * 0.4).astype(np.float32)
-    slot = np.sort(rng.randint(0, S, (K, T)), axis=1).astype(np.int32)
-    wvsl = (rng.normal(size=(K, S, 1 + R)) * 0.4).astype(np.float32)
-    z = np.zeros(K, np.int32)
-    ls = np.full(K, S - 1, np.int32)
-    args = tuple(
-        jnp.asarray(a) for a in (meta, q, slot, wvsl, z, z, ls)
+    counts1 = np.ones(20_000, dtype=np.int64)
+    T1, S1, infl1 = choose_tiling(counts1, 32)
+    assert S1 >= 16, (T1, S1)
+    assert infl1 == _packed_rows(counts1, T1, S1) / 20_000
+
+
+@pytest.mark.parametrize("rank", [8, 32, 96, 128])
+def test_tiling_rule_gives_kernel_shapes(rank):
+    """Every tiling the rule picks is one the kernel takes: T a power of
+    two and a multiple of its row block, S a power of two; heavier
+    Grams never get more entities per tile."""
+    from myfm_tpu.design_categorical import choose_tiling
+    from myfm_tpu.ops.gram import KERNEL_ROWS
+
+    rng = np.random.RandomState(rank)
+    counts = (rng.pareto(1.2, 3_000) * 40 + 1).astype(np.int64)
+    T, S, infl = choose_tiling(counts, rank)
+    assert T & (T - 1) == 0 and T % KERNEL_ROWS == 0, T
+    assert S & (S - 1) == 0, S
+    assert infl >= 1.0
+    _, S_small, _ = choose_tiling(counts, 4)
+    assert S <= S_small
+
+
+def test_gram_path_runs_at_float32_precision():
+    """Every contraction of the Gram path asks for HIGHEST precision
+    (on the GPU the default runs float32 products in TF32, ~1e-3
+    relative), and a float32 Gram of full-mantissa data stays within
+    float32 accumulation error of the float64 result."""
+    rng = np.random.RandomState(2)
+    K, T, S, R = 2, 64, 2, 16
+    (own, oidx), srcs, idx, tau, slot, seg = _chunk_problem(
+        rng, K, T, S, R, n_body=1, dtype=np.float32
     )
-    hi, _ = fused_tile_gram(*args, S=S, interpret=True)
-    bf, _ = fused_tile_gram(
-        *args, S=S, interpret=True, fast_matmul="bf16"
+    jaxpr = jax.make_jaxpr(
+        lambda *a: tile_grams_reference(*a, S, R)
+    )(own, oidx, srcs, idx, tau, slot)
+    dots = [
+        e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"
+    ]
+    assert dots
+    for e in dots:
+        prec = e.params["precision"]
+        assert prec == (jax.lax.Precision.HIGHEST,) * 2, prec
+    got = np.asarray(
+        tile_grams_reference(own, oidx, srcs, idx, tau, slot, S, R)
     )
-    scale = float(np.abs(np.asarray(hi)).max())
-    err = float(np.abs(np.asarray(bf) - np.asarray(hi)).max())
-    assert err <= 2e-2 * scale
+    with jax.enable_x64(True):
+        ref = np.asarray(tile_grams_reference(
+            own.astype(jnp.float64), oidx,
+            [s_.astype(jnp.float64) for s_ in srcs], idx,
+            tau.astype(jnp.float64), slot, S, R,
+        ))
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    kern = np.asarray(tile_grams_kernel(own, oidx, srcs, idx, tau, seg,
+                                        S, R, interpret=True))
+    assert np.abs(kern - ref).max() <= 1e-5 * np.abs(ref).max()
 
-    # end-to-end: forced bf16 chain recovers entity effects
-    n, n_u, n_i = 1500, 30, 20
-    u = rng.randint(0, n_u, n)
-    i = rng.randint(0, n_i, n)
-    bu = rng.normal(size=n_u)
-    bi = rng.normal(size=n_i)
-    y = 2.0 + bu[u] + bi[i] + 0.3 * rng.normal(size=n)
-    rows = np.arange(n)
-    X = sps.hstack(
-        [
-            sps.csr_matrix((np.ones(n), (rows, u)), shape=(n, n_u)),
-            sps.csr_matrix((np.ones(n), (rows, i)), shape=(n, n_i)),
-        ],
-        format="csr",
+
+def test_gram_impl_choice():
+    """The CPU gets the plain path; the GPU gets the compiled kernel or
+    the plain path and never interpret mode; any other platform, and
+    any unknown implementation name, is an error."""
+    from myfm_tpu.ops.gram import choose_impl
+
+    assert choose_impl(np.float32, 32, platform="cpu") == "xla"
+    assert choose_impl(np.float64, 32, platform="cpu") == "xla"
+    assert choose_impl(np.float32, 32, platform="gpu") == "triton"
+    assert choose_impl(np.float32, 32, 4, platform="gpu") == "triton"
+    assert choose_impl(np.float64, 32, platform="gpu") == "xla"
+    assert choose_impl(np.float32, 128, 3, platform="gpu") == "xla"
+    for rank in (1, 3, 10, 32, 64, 100, 128, 256):
+        for nb in (1, 3, 4):
+            for dt in (np.float32, np.float64):
+                assert choose_impl(dt, rank, nb, platform="gpu") in (
+                    "triton", "xla"
+                )
+    assert choose_impl(np.float32, 8) == "xla"  # this test host: CPU
+    from myfm_tpu.ops.gram import platform_of
+
+    assert platform_of(jnp.zeros(3)) == "cpu"
+    with pytest.raises(ValueError, match="platform"):
+        choose_impl(np.float32, 32, platform="rocm")
+    tab = compile_categorical_table(
+        np.arange(40) % 5, 5, 0, 40, np.float32, fixed_ts=(16, 2)
     )
-    from myfm_tpu.design_categorical import try_compile_categorical
-    from myfm_tpu.ops.gibbs import GibbsConfig
-    from myfm_tpu.trainer import CategoricalGibbsTrainer
-
-    plan = try_compile_categorical(
-        X, [], np.array([0] * n_u + [1] * n_i, np.int32), None,
-        np.float32, rank=2,
-    )
-    assert plan is not None
-    cfg = GibbsConfig(task="regression", gram_fast_matmul="bf16")
-    tr = CategoricalGibbsTrainer(
-        plan, y, cfg, rank=2, init_stdev=0.1, random_seed=7,
-        dtype=np.float32,
-    )
-    pred, hist = tr.run(60, 30)
-    yhat = np.zeros(n)
-    import jax
-
-    for s in pred.samples:
-        from myfm_tpu.ops.categorical import score_rows
-
-        yhat += np.asarray(
-            jax.jit(score_rows)(
-                plan, jnp.float32(s.w0), jnp.asarray(s.w),
-                jnp.asarray(s.V),
-            )
+    with pytest.raises(ValueError, match="unknown Gram"):
+        table_gram(
+            jnp.zeros((6, 4)), tab.ent_of_tile_row, [], [],
+            jnp.zeros(tab.slot.shape), tab.slot, tab.seg, tab.ent_slots,
+            rank=2, n_entities=5, tile_rows=16, tile_entities=2,
+            chunk_tiles=1, impl="mosaic",
         )
-    yhat /= len(pred.samples)
-    rmse = float(np.sqrt(np.mean((yhat - y) ** 2)))
-    assert rmse < 0.45  # noise floor 0.3; colored/f32 runs land ~0.33
 
 
 @pytest.mark.parametrize("T,S", [(16, 2), (64, 8), (256, 4)])
@@ -639,16 +582,14 @@ def test_device_derived_src_slot_matches_host_pack(T, S, seed, masked):
     if masked:
         ent[rng.rand(N) < 0.1] = B  # SPMD pad rows
     host = compile_categorical_table(
-        ent, B, 0, N, np.float32, T=T, S=S,
+        ent, B, 0, N, np.float32, fixed_ts=(T, S),
         derive_src_on_device=False,
     )
     dev = compile_categorical_table(
-        ent, B, 0, N, np.float32, T=T, S=S,
+        ent, B, 0, N, np.float32, fixed_ts=(T, S),
         derive_src_on_device=True,
     )
-    for field in ("src", "slot", "slot_f", "ent_of_tile_row",
-                  "cont_in", "cont_out", "last_slot", "ent_slots",
-                  "final_part", "fin_win", "fin_idx", "fin_mask"):
+    for field in ("src", "slot", "ent_of_tile_row", "ent_slots", "seg"):
         np.testing.assert_array_equal(
             np.asarray(getattr(host, field)),
             np.asarray(getattr(dev, field)),
@@ -658,18 +599,84 @@ def test_device_derived_src_slot_matches_host_pack(T, S, seed, masked):
     # the SPMD shape-padding path (fixed tiling + padded tile count)
     host_p = compile_categorical_table(
         ent, B, 0, N, np.float32, fixed_ts=(T, S),
-        pad_tiles_to=host.n_tiles + 3, max_fin_pad=host.max_fin + 1,
+        pad_tiles_to=host.n_tiles + 3,
         derive_src_on_device=False,
     )
     dev_p = compile_categorical_table(
         ent, B, 0, N, np.float32, fixed_ts=(T, S),
-        pad_tiles_to=host.n_tiles + 3, max_fin_pad=host.max_fin + 1,
+        pad_tiles_to=host.n_tiles + 3,
         derive_src_on_device=True,
     )
-    for field in ("src", "slot", "ent_of_tile_row", "final_part",
-                  "fin_idx", "fin_mask"):
+    for field in ("src", "slot", "ent_of_tile_row", "ent_slots", "seg"):
         np.testing.assert_array_equal(
             np.asarray(getattr(host_p, field)),
             np.asarray(getattr(dev_p, field)),
             err_msg=f"padded {field}",
         )
+
+
+@pytest.mark.gpu
+def test_triton_gram_compiled_matches_plain(gpu_device):
+    """On the card the compiled kernel (no interpret mode) matches the
+    plain path at float32, one and three body blocks."""
+    from myfm_tpu.ops.gram import choose_impl
+
+    assert choose_impl(np.float32, 32) == "triton"
+    for n_body, R in ((1, 32), (3, 16)):
+        rng = np.random.RandomState(n_body)
+        (own, oidx), srcs, idx, tau, slot, seg = _chunk_problem(
+            rng, 6, 128, 4, R, n_body=n_body, dtype=np.float32
+        )
+        ref = np.asarray(jax.jit(
+            tile_grams_reference, static_argnums=(6, 7)
+        )(own, oidx, srcs, idx, tau, slot, 4, R))
+        got = np.asarray(jax.jit(
+            tile_grams_kernel, static_argnums=(6, 7)
+        )(own, oidx, srcs, idx, tau, seg, 4, R))
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+def test_gpu_trainer_sweep_runs_compiled_kernel(gpu_device):
+    """A float32 fit on the card picks the Triton Gram, and the compiled
+    sweep contains the kernel."""
+    from myfm_tpu.trainer import CategoricalGibbsTrainer
+
+    blocks, y, _ = _cf_problem(seed=3, n=3000)
+    plan = try_compile_categorical(
+        None, blocks, None, None, np.float32, rank=8
+    )
+    tr = CategoricalGibbsTrainer(
+        plan, y, GibbsConfig(task="regression"), 8, 0.1, 1, np.float32
+    )
+    assert tr._gram_impl == "triton"
+    key = jax.random.PRNGKey(0)
+    state = tr._initialize(key)
+    hlo = tr._sweep.lower(
+        tr.plan, state, tr.y, tr.y_tiles, key, tr.cfg, tr._gram_impl
+    ).compile().as_text()
+    assert "fastpath_tile_gram" in hlo
+    for it in range(2):
+        state = tr._sweep_call(state, jax.random.fold_in(key, it))
+    assert np.isfinite(np.asarray(state.core.V)).all()
+
+
+@pytest.mark.parametrize("T,S", [(16, 2), (64, 8), (32, 1)])
+def test_native_pack_tiles_matches_numpy(T, S):
+    """The C++ tile packer (host path of the design compile) returns the
+    numpy packer's (src, slot, ent, ent_slots), pads included."""
+    from myfm_tpu._native import pack_tiles_native
+    from myfm_tpu.design_categorical import _pack_tiles
+
+    if pack_tiles_native is None:
+        pytest.skip("no C++ compiler for the native planner")
+    rng = np.random.RandomState(T + S)
+    N, B = 650, 23
+    ent = rng.randint(0, B, N)
+    ent[ent == 5] = 6  # entity with zero rows
+    order = np.argsort(ent, kind="stable")
+    counts = np.bincount(ent, minlength=B)
+    got = pack_tiles_native(order, counts, N, T, S)
+    want = _pack_tiles(ent[order], order, B, T, S)
+    for name, g, w in zip(("src", "slot", "ent", "ent_slots"), got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)

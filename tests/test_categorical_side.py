@@ -54,7 +54,7 @@ def _ea_problem(seed=0, N=400, B1=13, B2=9, Fs=4, R=3, density=0.6):
 def test_extraction_shapes():
     (m1, side, m2), blocks, grouping, _ = _ea_problem()
     plan = try_compile_categorical(
-        None, blocks, grouping, None, np.float64, T=32, S=4, rank=3,
+        None, blocks, grouping, None, np.float64, fixed_ts=(32, 4), rank=3,
         allow_side=True,
     )
     assert plan is not None
@@ -86,7 +86,7 @@ def test_ea_pass_matches_numpy_oracle():
     B2 = blocks[1].block_size
     R = 3
     plan = try_compile_categorical(
-        None, blocks, grouping, None, np.float64, T=32, S=4, rank=R,
+        None, blocks, grouping, None, np.float64, fixed_ts=(32, 4), rank=R,
         allow_side=True,
     )
     assert plan is not None and plan.side[2] is not None
@@ -112,7 +112,7 @@ def test_ea_pass_matches_numpy_oracle():
         jnp.asarray(lambda_w), jnp.asarray(mu_w),
         jnp.asarray(lambda_V), jnp.asarray(mu_V), plan.group_index,
         jnp.asarray(noise_w), jnp.asarray(noise_V), tau_tiles[2],
-        cfg, True, want_moments=True,
+        cfg, "interpret", want_moments=True,
     )
     w2, V2 = np.asarray(w_j), np.asarray(V_j)
 
@@ -179,7 +179,7 @@ def test_ea_sweep_residual_invariant(task):
     (m1, side, m2), blocks, grouping, rng = _ea_problem(seed=3)
     N = m1.shape[0]
     plan = try_compile_categorical(
-        None, blocks, grouping, None, np.float64, T=64, S=4, rank=2,
+        None, blocks, grouping, None, np.float64, fixed_ts=(64, 4), rank=2,
         allow_side=True,
     )
     assert plan is not None
@@ -196,7 +196,7 @@ def test_ea_sweep_residual_invariant(task):
     for it in range(3):
         state = categorical_sweep(
             plan, state, yj, y_tiles, jax.random.fold_in(key, it),
-            cfg, interpret=True,
+            cfg, gram_impl="interpret",
         )
     score = np.asarray(
         score_rows(plan, state.core.w0, state.core.w, state.core.V)

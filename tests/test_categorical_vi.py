@@ -182,7 +182,7 @@ def test_fast_vi_one_sweep_matches_numpy_oracle():
 
     for sweep in range(3):
         state = tr._sweep(
-            tr.plan, state, tr.y, tr.y_tiles, tr.cfg, tr._interpret
+            tr.plan, state, tr.y, tr.y_tiles, tr.cfg, tr._gram_impl
         )
         st = _oracle_cat_vi_sweep(
             u, i, y, st, (1.0, 1.0, 1.0, 0.0, 1.0)

@@ -62,7 +62,7 @@ def test_vi_ea_pass_matches_numpy_oracle():
     B2n = blocks[1].block_size
     R = 3
     plan = try_compile_categorical(
-        None, blocks, grouping, None, np.float64, T=32, S=4,
+        None, blocks, grouping, None, np.float64, fixed_ts=(32, 4),
         rank=4 * R, allow_side=True,
     )
     assert plan is not None and plan.side[2] is not None
@@ -92,7 +92,7 @@ def test_vi_ea_pass_matches_numpy_oracle():
         jnp.asarray(V_var), w0, alpha,
         jnp.asarray(lambda_w), jnp.asarray(mu_w),
         jnp.asarray(lambda_V), jnp.asarray(mu_V), plan.group_index,
-        tau_tiles[2], cfg, True, eff,
+        tau_tiles[2], cfg, "interpret", eff,
     )
 
     # ---- numpy oracle ------------------------------------------------
@@ -182,7 +182,7 @@ def test_vi_ea_refresh_matches_oracle():
     B1, Fs = side.shape
     R = 2
     plan = try_compile_categorical(
-        None, blocks, grouping, None, np.float64, T=32, S=4,
+        None, blocks, grouping, None, np.float64, fixed_ts=(32, 4),
         rank=4 * R, allow_side=True,
     )
     F = plan.n_features

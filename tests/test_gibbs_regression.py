@@ -61,7 +61,7 @@ def test_regression_posterior_concentration(
 
 def test_serial_vs_colored_parity(middle_data):
     """The chromatic sweep must reproduce the serial scan exactly
-    (same per-feature noise stream) — the TPU analogue of the
+    (same per-feature noise stream) — the chromatic analogue of the
     reference's blocked ≡ flattened contract."""
     rng = np.random.RandomState(1)
     X, score = middle_data

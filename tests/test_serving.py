@@ -15,7 +15,6 @@ from myfm_tpu.containers import FM
 from myfm_tpu.ops.forward_categorical import (
     compile_categorical_inference,
     scores_samples_reduce,
-    serving_roofline_rows_per_sec,
     stack_sources,
 )
 from myfm_tpu.predictor import Predictor, _LiveKey
@@ -270,14 +269,6 @@ def test_predict_many_samples_matches_oracle():
     Xd = expand_blocks(X, blocks)
     want = np.mean([fm_oracle_score(Xd, s) for s in samples], axis=0)
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
-
-
-def test_serving_roofline_positive():
-    rng = np.random.RandomState(5)
-    X, blocks = _categorical_design(rng)
-    plan = compile_categorical_inference(X, blocks, np.float32)
-    r = serving_roofline_rows_per_sec(plan, n_samples=8, rank=32)
-    assert r > 1e6
 
 
 def test_stack_sources_shapes():

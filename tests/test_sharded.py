@@ -319,61 +319,6 @@ def test_estimator_n_devices_api():
         np.testing.assert_allclose(a.V, b.V, rtol=1e-6, atol=1e-9)
 
 
-@pytest.mark.parametrize("n_dev", [2])
-def test_sharded_joint_pallas_tail_parity(n_dev):
-    """The joint sweep's Pallas tail kernel under shard_map (interpret
-    mode here; the auto-gate enables the compiled kernel on TPU for
-    sharded fits through the same _resolve_joint_pallas_tail) must
-    reproduce the single-chip scan-tail chain."""
-    import scipy.sparse as sps
-
-    from myfm_tpu.gibbs import MyFMGibbsRegressor as _R
-    from myfm_tpu.relational import RelationBlock as _RB
-
-    rng = np.random.RandomState(17)
-    n, nu, ni = 403, 25, 18  # non-divisible rows -> SPMD padding
-    u = rng.randint(0, nu, n)
-    i = rng.randint(0, ni, n)
-    # multi-hot implicit features force a nontrivial color tail
-    imp = sps.csr_matrix(
-        (rng.random((nu, ni)) > 0.7).astype(np.float64)
-    )
-    blocks = [
-        _RB(u, sps.hstack(
-            [sps.identity(nu, format="csr"), imp], format="csr"
-        )),
-        _RB(i, sps.identity(ni, format="csr")),
-    ]
-    y = rng.normal(size=n)
-
-    fm = _R(
-        rank=2, random_seed=7, dtype=np.float64, sweep_strategy="joint"
-    ).fit(None, y, X_rel=blocks, n_iter=5, n_kept_samples=5)
-
-    mesh = Mesh(np.array(jax.devices()[:n_dev]), ("data",))
-    trainer = ShardedGibbsTrainer(
-        None, blocks, y,
-        GibbsConfig(
-            task="regression", joint_rows=True,
-            joint_pallas_tail="interpret",
-        ),
-        rank=2, init_stdev=0.1, random_seed=7,
-        mesh=mesh, dtype=np.float64,
-    )
-    assert any(
-        b.dense_stack is not None for b in trainer.plan.blocks
-    ), "problem must exercise the tail kernel"
-    pred, _ = trainer.run(5, 5)
-    for s_n, fm_sample in zip(pred.samples, fm.predictor_.samples):
-        np.testing.assert_allclose(s_n.w0, fm_sample.w0, rtol=1e-8)
-        np.testing.assert_allclose(
-            s_n.w, fm_sample.w, rtol=1e-6, atol=1e-9
-        )
-        np.testing.assert_allclose(
-            s_n.V, fm_sample.V, rtol=1e-6, atol=1e-9
-        )
-
-
 @pytest.mark.parametrize("n_dev", [2, 4])
 def test_sharded_categorical_reduce_scatter_parity(n_dev):
     """Entity counts divisible by the mesh -> the fast path
@@ -424,7 +369,7 @@ def test_sharded_categorical_reduce_scatter_parity(n_dev):
 @pytest.mark.parametrize("n_dev", [2, 8])
 def test_sharded_predict_equals_single_chip(n_dev):
     """Row-sharded posterior serving ≡ single-chip serving (to float
-    reassociation) — the TPU-native predict_parallel analogue
+    reassociation) — the predict_parallel analogue
     (predictor.hpp:35-76)."""
     import scipy.sparse as sps
 

@@ -114,36 +114,3 @@ def test_vi_classifier(stub_weight):
     acc = ((proba > 0.5) == (y > 0)).mean()
     assert acc > 0.8
     np.testing.assert_array_equal(clf.predict(X), proba > 0.5)
-
-
-def test_vi_staged_equals_fused():
-    """The trainer's staged per-factor dispatch mode (used above
-    ~2M rows to bound single-dispatch duration) must reproduce the
-    fused vi_sweep exactly: same update order, same operands, only
-    the jit partitioning differs."""
-    import jax
-    import numpy as np_
-
-    from myfm_tpu.design import compile_design
-    from myfm_tpu.ops.variational import VariationalConfig
-    from myfm_tpu.vi_trainer import VariationalTrainer
-
-    X_main, blocks, y = _make_relational_problem(seed=31)
-    plan = compile_design(X_main, blocks, dtype=np_.float64)
-    cfg = VariationalConfig(task="regression")
-
-    results = []
-    for staged in (False, True):
-        tr = VariationalTrainer(
-            plan, y, cfg, rank=3, init_stdev=0.1, random_seed=5,
-            dtype=np_.float64, staged=staged,
-        )
-        predictor, history = tr.run(8)
-        results.append((predictor.samples[0], list(history.elbos)))
-
-    (fm_f, el_f), (fm_s, el_s) = results
-    np_.testing.assert_allclose(fm_s.w, fm_f.w, rtol=1e-10)
-    np_.testing.assert_allclose(fm_s.V, fm_f.V, rtol=1e-10)
-    np_.testing.assert_allclose(fm_s.V_var, fm_f.V_var, rtol=1e-10)
-    np_.testing.assert_allclose(el_s, el_f, rtol=1e-9)
-    del jax
